@@ -3,29 +3,60 @@
 
     python3 chip_smoke.py
 
-Phases (any failed check raises, and the script exits non-zero):
+Phases (every check is stated with its tolerance; any failed check makes
+the script exit non-zero after it has printed what it measured):
 
-1. build the hand-written CUDA kernel (``bsr_spmv``) from the sources in
-   this checkout;
-2. hold the kernel against its plain PyTorch version on the card, for each
-   semiring, at bm = 128 on random layouts with ELL padding slots:
+1. build the hand-written CUDA kernels (``bsr_spmv``, ``decode_attn``,
+   ``ssd``) from the sources in this checkout, one ``nvcc`` each, all at
+   once;
+2. hold ``bsr_spmv`` against its plain PyTorch version on the card, for
+   each semiring, at bm = 128 on random layouts with ELL padding slots:
    bitwise for (min,+) and (or,and), rtol=1e-5 for (+,×);
-3. drive the main path through the port's CLI entry: ``graph500:16``,
+3. drive the graph path through the port's CLI entry: ``graph500:16``,
    WindGP on the default cluster (3 super + 6 normal machines), PageRank
    for 20 supersteps on the ``pallas`` backend (the kernel), on ``cuda``.
    On the same runtime, the ``scatter`` backend and the float64 numpy
    oracle must agree within 1e-5·max(pr), and the PageRank mass within
    1e-5 relative;
-4. time the kernel, its plain version and a library yardstick on the
-   main path's layout, and the superstep of both backends.
+4. time ``bsr_spmv``, its plain version and a library yardstick on the
+   graph path's layout, and the superstep of both backends; then free the
+   graph path's 37 GB of blocks;
+5. hold ``decode_attn`` and ``ssd`` against their plain versions in
+   float32 and bfloat16, on edge inputs: ragged lengths below a Smax that
+   is no multiple of any block, a ``lengths == 0`` row, T no multiple of
+   the chunk, strong decay (a = -5), and the final SSD state;
+6. serve qwen3-4b at its published config (bf16, 36 layers, random
+   weights from a seeded generator on the card) through
+   ``serve.generate``: 8 prompts of 2048 random tokens, 64 new tokens,
+   greedy.  ``decode_attn`` must launch exactly 36 × 64 times, and the
+   decode steps' logits must agree with ``forward`` over prompt + output
+   (blockwise prefill attention, no kernel) at the same positions, in
+   bf16 and in a float32 replay of 8 tokens on 2 prompts; a profile of 3
+   decode steps gives the device time by kernel.  The bf16 check is also
+   read with a wrong decode attention (query heads on the wrong KV group),
+   which must exceed its limit, and with the newest key left out, which it
+   cannot see and the float32 replay must;
+7. the same for mamba2-780m: ``ssd`` launches 48 times in the prefill,
+   and the decode steps' logits (the single-step recurrence) must agree
+   with ``forward`` (the kernel).  The bf16 check is also read with the
+   plain SSD in ``forward`` in place of the kernel, which must pass as
+   the kernel does, and with two wrong SSD functions, which must fail;
+8. time ``decode_attn`` at the serving shape and at S = 32768, and
+   ``ssd`` at the serving shape, beside their plain versions, a library
+   call where one exists, and their bounds.  These times are device time
+   from torch.profiler (``ms``; CUDA events around the wrapper call,
+   host launch overhead included, are ``call_ms``); ``bsr_spmv``'s 14 ms
+   launches are timed with CUDA events.
 
-It prints JSON lines (sizes, memory, superstep time, the kernel table
+It prints JSON lines (sizes, memory, times, checks, the kernel table
 line), the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it fails before printing any result.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import pathlib
 import statistics
@@ -41,10 +72,44 @@ ROOT = pathlib.Path(__file__).resolve().parent
 #: H100 SXM published peaks (NVIDIA data sheet; full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12            # float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12       # bf16 on the tensor cores, dense
 
 GRAPH = "graph500:16"
 ITERS = 20
 BM = 128
+
+# the LM serving traffic: 8 prompts of 2048 tokens, 64 new tokens each
+BATCH, PROMPT, NEW = 8, 2048, 64
+CHECK_ROWS = 2               # sequences re-run through forward for the check
+
+# tolerances of the kernel checks (phase 5):
+# float32 as the JAX package's kernel tests hold the Pallas kernels;
+# bfloat16 outputs: the two versions see identical bf16 inputs and differ
+# only in float32 summation order, which can move the rounded output by
+# one bf16 unit (2^-8 relative); the SSD state stays float32 (2e-4).
+TOL = {torch.float32: {"decode": dict(rtol=2e-5, atol=2e-5),
+                       "ssd": dict(rtol=2e-4, atol=2e-4)},
+       torch.bfloat16: {"decode": dict(rtol=2 ** -7, atol=1e-4),
+                        "ssd": dict(rtol=2 ** -7, atol=1e-3)}}
+STATE_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# decode-vs-forward logits (phases 6 and 7).
+# float32 replay (the sharp check): the same model in float32 (TF32 off),
+# where the two paths differ only in summation order: 1e-4 relative (L2);
+# the reduced configs agree with JAX to 1e-4 on the CPU.
+F32_LOGITS_REL_L2 = 1e-4
+REPLAY_NEW = 8
+# bf16 serving run: each layer rounds its activations to bf16 (2^-9) in an
+# order that depends on the batch shape (1 token against 2112), and a
+# randomly initialised deep stack amplifies it, mamba2-780m's 48 SSM layers
+# most.  Each model's limit lies between its sound readings (for
+# mamba2-780m also the plain SSD's in place of the kernel) and the readings
+# of wrong functions that the run takes too and that must exceed it; on an
+# H100: qwen3-4b 0.0137 against 1.32, mamba2-780m 0.274 and 0.276 against
+# 1.29 and 1.34 (PERF.md).
+BF16_LOGITS_REL_L2 = {"qwen3-4b": 0.05, "mamba2-780m": 0.5}
+
+FAILURES: list[str] = []
 
 
 def log(msg: str) -> None:
@@ -53,8 +118,10 @@ def log(msg: str) -> None:
 
 
 def check(ok: bool, msg: str) -> None:
+    """Record a failed check; the script fails at the end of the run."""
     if not ok:
-        raise RuntimeError(f"check failed: {msg}")
+        FAILURES.append(msg)
+        log(f"CHECK FAILED: {msg}")
 
 
 def cuda_ms(fn, reps: int) -> list[float]:
@@ -71,6 +138,46 @@ def cuda_ms(fn, reps: int) -> list[float]:
         end.synchronize()
         out.append(start.elapsed_time(end))
     return out
+
+
+def median_ms(fn, reps: int) -> float:
+    return statistics.median(cuda_ms(fn, reps))
+
+
+def is_device_event(e) -> bool:
+    return e.device_type == torch.autograd.DeviceType.CUDA
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time (ms) per call of ``fn()``: the time of the kernels and
+    copies it ran, as torch.profiler records them over ``reps`` calls after
+    one warm-up.  CUDA events around a call would also count the host's
+    launch overhead, which can exceed a short kernel's own time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if is_device_event(e))
+    check(total > 0, "the profiler recorded no device time")
+    return total / reps / 1e3
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def close(got, want, tol, what: str) -> float:
+    """Check ``|got - want| <= atol + rtol·|want|`` elementwise; returns the
+    largest absolute difference."""
+    err = (got.float() - want.float()).abs()
+    limit = tol["atol"] + tol["rtol"] * want.float().abs()
+    check(bool((err <= limit).all()), f"{what}: max |d| {float(err.max())}")
+    return float(err.max())
 
 
 def random_layout(gen, semiring, p=3, R=16, K=5, C=16, bm=BM):
@@ -95,32 +202,28 @@ def random_layout(gen, semiring, p=3, R=16, K=5, C=16, bm=BM):
     return cols, blocks.contiguous(), x
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs a CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+def reset_launches():
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.kernels.ssd import ssd_chunked
+    for fn in (bsr_spmv, decode_attention, ssd_chunked):
+        fn.launches = 0
+    return bsr_spmv, decode_attention, ssd_chunked
+
+
+# ---------------------------------------------------------------------------
+# phases 2-4: the graph path
+# ---------------------------------------------------------------------------
+
+def graph_path(gen, lines: list) -> dict:
+    """Phases 2-4; returns the kernel table entry of ``bsr_spmv``.  Every
+    tensor of the path is local, so it is freed on return."""
     from repro_torch.bsp import build_pagerank, pagerank, ref
-    from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref, kernel
+    from repro_torch.kernels.bsr_spmv import bsr_spmv_ref
     from repro_torch.launch import partition as cli
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-
-    # -- phase 1: build --------------------------------------------------
-    built = kernel.build()
-    log(f"phase 1: built {built.path.name} in {built.seconds:.1f}s")
-    if built.log:
-        print(built.log, file=sys.stderr)
-
     # -- phase 2: kernel vs plain version, per semiring --------------------
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    bsr_spmv = reset_launches()[0]
     semiring_err = {}
     for sr in ("plus_times", "min_plus", "or_and"):
         cols, blocks, x = random_layout(gen, sr)
@@ -128,16 +231,17 @@ def main() -> int:
         want = bsr_spmv_ref(cols, blocks, x, sr)
         torch.cuda.synchronize()
         if sr == "plus_times":
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+            close(got, want, dict(rtol=1e-5, atol=0.0), sr)
         else:
             check(torch.equal(got, want), f"{sr}: kernel != plain bitwise")
         fin = torch.isfinite(want)
         semiring_err[sr] = float((got[fin] - want[fin]).abs().max())
-    log(f"phase 2: kernel == plain per semiring, max_abs_err {semiring_err}")
+    log(f"phase 2: bsr_spmv == plain per semiring, max_abs_err "
+        f"{semiring_err}")
 
-    # -- phase 3: the main path through the CLI entry ----------------------
+    # -- phase 3: the graph path through the CLI entry ---------------------
     torch.cuda.reset_peak_memory_stats()
-    bsr_spmv.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = cli.run(["--graph", GRAPH, "--method", "windgp", "--pagerank",
                    "--pagerank-iters", str(ITERS), "--backend", "pallas",
@@ -146,7 +250,7 @@ def main() -> int:
     launches = bsr_spmv.launches
     main_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    check(launches >= 1, "the main path never launched bsr_spmv")
+    check(launches >= 1, "the graph path never launched bsr_spmv")
     g, rt, pr = res.graph, res.runtime, res.pagerank
     check(pr.shape == (g.num_vertices,) and bool(np.isfinite(pr).all()),
           "PageRank is not a finite (V,) vector")
@@ -159,10 +263,10 @@ def main() -> int:
     check(d_scatter <= 1e-5 * scale, f"pallas vs scatter {d_scatter}")
     check(d_oracle <= 1e-5 * scale, f"pallas vs numpy oracle {d_oracle}")
     check(mass_rel <= 1e-5, f"mass differs by {mass_rel} relative")
-    log(f"phase 3: main path in {main_s:.1f}s, {launches} launches, "
+    log(f"phase 3: graph path in {main_s:.1f}s, {launches} launches, "
         f"max|d| scatter {d_scatter:.3g} oracle {d_oracle:.3g}")
 
-    # -- phase 4: timings on the main path's layout ------------------------
+    # -- phase 4: timings on the graph path's layout -----------------------
     bsr = rt.local_bsr(block_size=BM, semiring="plus_times",
                        weights="weight")
     p, R, K = bsr.cols.shape
@@ -173,17 +277,15 @@ def main() -> int:
 
         def step():
             state[0], _ = spec.superstep(state[0], spec.static)
-        step_ms[backend] = statistics.median(cuda_ms(step, 10))
+        step_ms[backend] = median_ms(step, 10)
 
     x = torch.rand((p, R * BM), generator=gen, device="cuda")
     y = bsr_spmv(bsr.cols, bsr.blocks, x)
-    kernel_ms = statistics.median(cuda_ms(
-        lambda: bsr_spmv(bsr.cols, bsr.blocks, x), 10))
+    kernel_ms = median_ms(lambda: bsr_spmv(bsr.cols, bsr.blocks, x), 10)
     y_plain = bsr_spmv_ref(bsr.cols, bsr.blocks, x)
-    torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-6)
-    max_abs_err = float((y - y_plain).abs().max())
-    plain_ms = statistics.median(cuda_ms(
-        lambda: bsr_spmv_ref(bsr.cols, bsr.blocks, x), 3))
+    close(y, y_plain, dict(rtol=1e-5, atol=1e-6), "bsr_spmv on the layout")
+    max_abs_err = max_err(y, y_plain)
+    plain_ms = median_ms(lambda: bsr_spmv_ref(bsr.cols, bsr.blocks, x), 3)
     # yardstick, never called by the port: one batched matmul over every
     # ELL slot, then the sum over K (einsum would copy the blocks)
     xg = x.view(p, R, BM)[torch.arange(p, device="cuda")[:, None, None],
@@ -193,34 +295,33 @@ def main() -> int:
     def library():
         return torch.matmul(flat_blocks, xg.view(-1, BM, 1)).view(
             p, R, K, BM).sum(dim=2)
-    torch.testing.assert_close(library().view(p, -1), y_plain, rtol=1e-5,
-                               atol=1e-6)
-    library_ms = statistics.median(cuda_ms(library, 10))
+    close(library().view(p, -1), y_plain, dict(rtol=1e-5, atol=1e-6),
+          "bsr_spmv library yardstick")
+    library_ms = median_ms(library, 10)
     nbytes = 4 * (bsr.blocks.numel() + bsr.cols.numel() + x.numel()
                   + y.numel())
-    ops = 2 * bsr.blocks.numel()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOPS * 1e3
-    log(f"phase 4: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    ops_ms = 2 * bsr.blocks.numel() / F32_FLOPS * 1e3
+    log(f"phase 4: bsr_spmv {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library {library_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms")
 
     blocks_bytes = 4 * bsr.blocks.numel()
     total = torch.cuda.get_device_properties(0).total_memory
-    print(json.dumps({"graph": GRAPH, "V": g.num_vertices, "E": g.num_edges,
-                      "p": rt.p, "vmax": rt.vmax, "emax": rt.emax,
-                      "replicas": rt.num_replicas, "bm": BM, "R": R, "K": K,
-                      "TC": res.report["TC"], "RF": res.report["RF"]}))
-    print(json.dumps({"blocks_gb": blocks_bytes / 1e9,
-                      "blocks_share_of_hbm": blocks_bytes / total,
-                      "fill": bsr.aggregate_fill()}))
-    print(json.dumps({"max_memory_allocated_gb": peak / 1e9,
-                      "main_path_s": main_s}))
-    print(json.dumps({"superstep_ms_median": step_ms,
-                      "pagerank_check": {"max_abs_vs_scatter": d_scatter,
-                                         "max_abs_vs_oracle": d_oracle,
-                                         "mass_rel": mass_rel},
-                      "semiring_max_abs_err": semiring_err}))
-    print(json.dumps({"kernels": [{
+    lines.append({"graph": GRAPH, "V": g.num_vertices, "E": g.num_edges,
+                  "p": rt.p, "vmax": rt.vmax, "emax": rt.emax,
+                  "replicas": rt.num_replicas, "bm": BM, "R": R, "K": K,
+                  "TC": res.report["TC"], "RF": res.report["RF"]})
+    lines.append({"blocks_gb": blocks_bytes / 1e9,
+                  "blocks_share_of_hbm": blocks_bytes / total,
+                  "fill": bsr.aggregate_fill()})
+    lines.append({"max_memory_allocated_gb": peak / 1e9,
+                  "main_path_s": main_s})
+    lines.append({"superstep_ms_median": step_ms,
+                  "pagerank_check": {"max_abs_vs_scatter": d_scatter,
+                                     "max_abs_vs_oracle": d_oracle,
+                                     "mass_rel": mass_rel},
+                  "semiring_max_abs_err": semiring_err})
+    return {
         "name": "bsr_spmv", "route": "cuda",
         "source": "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu",
         "replaces": "src/repro/kernels/bsr_spmv/kernel.py:70",
@@ -229,8 +330,522 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
-        "library": "torch.matmul (p*R*K,bm,bm)@(p*R*K,bm,1) + sum over K"}]}))
+        "library": "torch.matmul (p*R*K,bm,bm)@(p*R*K,bm,1) + sum over K"}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def decode_inputs(gen, B, H, KVH, dh, S, dtype):
+    dev = "cuda"
+    q = torch.randn((B, H, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, KVH, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, KVH, dh), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def ssd_inputs(gen, B, T, nh, G, dh, ds, dtype, decay=None):
+    """x, b, c in ``dtype`` and the log-decay a (float32) as the model
+    makes it, -softplus(·), or constant ``-decay``."""
+    dev = "cuda"
+    x = torch.randn((B, T, nh, dh), generator=gen, device=dev).to(dtype)
+    b = (0.5 * torch.randn((B, T, G, ds), generator=gen,
+                           device=dev)).to(dtype)
+    c = (0.5 * torch.randn((B, T, G, ds), generator=gen,
+                           device=dev)).to(dtype)
+    if decay is None:
+        a = -torch.nn.functional.softplus(
+            torch.randn((B, T, nh), generator=gen, device=dev))
+    else:
+        a = torch.full((B, T, nh), -decay, device=dev)
+    return x, b, c, a
+
+
+def hold_lm_kernels(gen) -> dict:
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_ref)
+    from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        # serving width, Smax = 2113 (prompt + new + 1): no multiple of the
+        # 32-row tile or the 256-position split; ragged lengths and a 0
+        B, H, KVH, dh, S = 4, 32, 8, 128, PROMPT + NEW + 1
+        q, k, v = decode_inputs(gen, B, H, KVH, dh, S, dtype)
+        lens = torch.tensor([S, 0, 1000, 1], dtype=torch.int32,
+                            device="cuda")
+        got = decode_attention(q, k, v, lens)
+        want = decode_attention_ref(q, k, v, lens)
+        tol = TOL[dtype]["decode"]
+        errs[f"decode_attn_{name}"] = close(got, want, tol,
+                                            f"decode_attn {name}")
+        uniform = v[1].float().mean(0).repeat_interleave(H // KVH, dim=0)
+        close(got[1], uniform, tol, f"decode_attn {name} lengths == 0")
+        # ssd at the mamba2 width, T = 300 (no multiple of 128), with the
+        # final state; then strong decay
+        for T, decay in ((300, None), (1000, 5.0)):
+            x, b, c, a = ssd_inputs(gen, 2, T, 48, 1, 64, 128, dtype, decay)
+            y, h = ssd_chunked(x, b, c, a, chunk=128, return_state=True)
+            y_ref, h_ref = ssd_chunked_ref(x, b, c, a, chunk=128,
+                                           return_state=True)
+            tag = f"ssd_{name}_T{T}" + ("_decay5" if decay else "")
+            errs[tag] = close(y, y_ref, TOL[dtype]["ssd"], tag)
+            errs[tag + "_state"] = close(h, h_ref, STATE_TOL,
+                                         tag + " final state")
+            check(bool(torch.isfinite(y.float()).all()), f"{tag} not finite")
+    torch.cuda.synchronize()
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: serving at full width
+# ---------------------------------------------------------------------------
+
+def forward_at(cfg, params, prompts, tokens) -> torch.Tensor:
+    """``forward`` over prompt + tokens, float32 logits at the positions
+    that produced ``tokens`` (B, n, V)."""
+    from repro_torch.models import forward
+    P, n = prompts.shape[1], tokens.shape[1]
+    ref = forward(cfg, params, torch.cat([prompts, tokens], dim=1))
+    return ref[:, P - 1:P - 1 + n].float()
+
+
+def rel(got, ref) -> float:
+    return float((got.float() - ref).norm() / ref.norm())
+
+
+def logits_check(cfg, params, prompts, tokens, logits) -> dict:
+    """Decode logits (B, n, V) against ``forward`` over prompt + tokens at
+    the same positions: relative L2 overall, for the prefill's last
+    position (step 0) and for the decode steps, and argmax agreement."""
+    n = tokens.shape[1]
+    ref = forward_at(cfg, params, prompts, tokens)
+    got = logits.float()
+    return {"rows": prompts.shape[0], "steps": n, "rel_l2": rel(got, ref),
+            "rel_l2_step0": rel(got[:, 0], ref[:, 0]),
+            "rel_l2_decode_steps": rel(got[:, 1:], ref[:, 1:]),
+            "max_abs": max_err(got, ref),
+            "max_abs_ref": float(ref.abs().max()),
+            "argmax_agreement": float(
+                (got.argmax(-1) == ref.argmax(-1)).float().mean())}
+
+
+def profile_decode(cfg, params, cache, lens, steps: int = 3) -> dict:
+    """Device time by kernel over ``steps`` decode steps (torch.profiler),
+    and the device's busy share of that window."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step
+    tok = torch.zeros((lens.shape[0], 1), dtype=torch.long, device="cuda")
+    decode_step(cfg, params, cache, tok, lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            decode_step(cfg, params, cache, tok, lens + 1 + i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    events = [e for e in prof.key_averages() if is_device_event(e)]
+    total = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    if total == 0:    # the profiler saw no device activity: not measured
+        return {"steps": steps, "device_ms_per_step": None}
+    return {"steps": steps, "wall_ms_per_step_profiled": wall_us / steps / 1e3,
+            "device_ms_per_step": total / steps / 1e3,
+            "device_busy_share": total / wall_us,
+            "top_device_ms_per_step": {
+                e.key[:80]: e.self_device_time_total / steps / 1e3
+                for e in top},
+            "cpu_ms_per_step": sum(e.self_cpu_time_total
+                                   for e in prof.key_averages())
+            / steps / 1e3}
+
+
+@contextlib.contextmanager
+def model_calls(name: str, fn):
+    """Run the model with ``models.layers.<name>`` (a kernel's wrapper)
+    replaced by ``fn``."""
+    from repro_torch.models import layers
+    kept = getattr(layers, name)
+    setattr(layers, name, fn)
+    try:
+        yield
+    finally:
+        setattr(layers, name, kept)
+
+
+def ssd_decay_after_input(x, b, c, a, **kw):
+    """A wrong SSD: h_t = exp(a_t) (h_{t-1} + b_t x_tᵀ), the decay applied
+    after the input instead of before it."""
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    xd = (x.float() * torch.exp(a)[..., None]).to(x.dtype)
+    return ssd_chunked_ref(xd, b, c, a, **kw)
+
+
+def ssd_no_diagonal(x, b, c, a, **kw):
+    """A wrong SSD: the causal mask one step short (s < t), so y_t loses
+    its own term (c_t · b_t) x_t."""
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    y = ssd_chunked_ref(x, b, c, a, **kw)
+    cb = (c.float() * b.float()).sum(-1)                   # (B, T, G)
+    cb = cb.repeat_interleave(x.shape[2] // b.shape[2], dim=2)
+    return (y.float() - cb[..., None] * x.float()).to(y.dtype)
+
+
+def attn_missing_newest(q, k, v, lengths):
+    """A wrong decode attention: the newest position of the cache left
+    out (lengths - 1)."""
+    from repro_torch.kernels.decode_attn import decode_attention
+    return decode_attention(q, k, v, lengths - 1)
+
+
+def attn_wrong_group(q, k, v, lengths):
+    """A wrong decode attention: query head h reads KV head h % KVH instead
+    of h // (H / KVH)."""
+    from repro_torch.kernels.decode_attn import decode_attention
+    H, KVH = q.shape[1], k.shape[2]
+    perm = torch.tensor([(h % KVH) * (H // KVH) + h // KVH for h in range(H)],
+                        device=q.device)
+    qp = torch.empty_like(q)
+    qp[:, perm] = q
+    return decode_attention(qp, k, v, lengths)[:, perm]
+
+
+def bf16_readings(cfg, params, prompts, tokens, logits) -> dict:
+    """The bf16 decode-vs-forward reading (rel L2) with the kernel's plain
+    version or a wrong function in the kernel's place.  The SSD kernel
+    serves ``forward``, so its stand-ins replace it there; decode attention
+    serves the decode steps, so its stand-in runs ``generate`` again."""
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    from repro_torch.serve import generate
+    out = {}
+    if cfg.family == "ssm":
+        ref = forward_at(cfg, params, prompts, tokens)
+        for name, fn in (("plain_ssd", ssd_chunked_ref),
+                         ("wrong_decay_after_input", ssd_decay_after_input),
+                         ("wrong_no_diagonal", ssd_no_diagonal)):
+            with model_calls("ssd_chunked", fn):
+                other = forward_at(cfg, params, prompts, tokens)
+            out[name] = rel(logits, other)
+            if name == "plain_ssd":     # the same function, two summations
+                out["forward_kernel_vs_plain_ssd"] = rel(ref, other)
+            del other
+    else:
+        # leaving out one of ~2,100 keys moves near-uniform random-init
+        # attention too little for this check ("blind_"); the float32
+        # replay sees it
+        for name, fn in (("wrong_kv_group", attn_wrong_group),
+                         ("blind_missing_newest", attn_missing_newest)):
+            with model_calls("decode_attention", fn):
+                toks, lg = generate(cfg, params, prompts, tokens.shape[1],
+                                    return_logits=True)
+            out[name] = logits_check(cfg, params, prompts, toks,
+                                     lg)["rel_l2"]
+    return out
+
+
+def serve_model(arch: str, lines: list) -> dict:
+    """Serve ``arch`` at its published config; returns its launch counts
+    and times."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serve import generate
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+
+    _, attn, ssd = reset_launches()
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompts, NEW, return_logits=True)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {"decode_attn": attn.launches, "ssd": ssd.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    # the prefill alone, as generate runs it, for the prefill/decode split
+    cache = init_cache(cfg, BATCH, PROMPT + NEW + 1, device="cuda")
+    zeros = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    decode_step(cfg, params, cache, prompts, zeros)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    decode_s = total_s - prefill_s
+    prof = profile_decode(cfg, params, cache,
+                          torch.full((BATCH,), PROMPT, dtype=torch.int32,
+                                     device="cuda"))
+    del cache
+
+    check(tuple(tokens.shape) == (BATCH, NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+        f"{arch}: tokens out of shape or range")
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{arch}: decode logits not finite")
+    # decode steps against forward over prompt + output, same positions
+    ssd_before = ssd.launches
+    bf16_check = logits_check(cfg, params, prompts[:CHECK_ROWS],
+                              tokens[:CHECK_ROWS], logits[:CHECK_ROWS])
+    torch.cuda.synchronize()
+    forward_ssd = ssd.launches - ssd_before
+    limit = BF16_LOGITS_REL_L2[arch]
+    check(bf16_check["rel_l2"] <= limit,
+          f"{arch}: bf16 decode vs forward logits rel L2 "
+          f"{bf16_check['rel_l2']} > {limit}")
+    # the limit passes the same function and fails wrong ones
+    readings = bf16_readings(cfg, params, prompts[:CHECK_ROWS],
+                             tokens[:CHECK_ROWS], logits[:CHECK_ROWS])
+    for name, value in readings.items():
+        if name == "plain_ssd":
+            check(value <= limit, f"{arch}: bf16 reading with the plain "
+                  f"SSD {value} > {limit}")
+        elif name.startswith("wrong_"):
+            check(value > limit, f"{arch}: bf16 reading of a wrong function "
+                  f"({name}) {value} <= {limit}")
+    bf16_check["limit"] = limit
+    bf16_check["readings"] = readings
+    del params, logits
+    torch.cuda.empty_cache()
+    # the same in float32: the kernels' float32 instances on the decode
+    # and forward paths must compute one function
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device="cuda")
+    p32 = prompts[:CHECK_ROWS]
+    toks32, logits32 = generate(cfg32, params, p32, REPLAY_NEW,
+                                return_logits=True)
+    f32_check = logits_check(cfg32, params, p32, toks32, logits32)
+    check(f32_check["rel_l2"] <= F32_LOGITS_REL_L2,
+          f"{arch}: float32 decode vs forward logits rel L2 "
+          f"{f32_check['rel_l2']}")
+    if cfg.family == "dense":     # the fault the bf16 check cannot see
+        with model_calls("decode_attention", attn_missing_newest):
+            toks_w, logits_w = generate(cfg32, params, p32, REPLAY_NEW,
+                                        return_logits=True)
+        wrong = logits_check(cfg32, params, p32, toks_w, logits_w)["rel_l2"]
+        f32_check["wrong_missing_newest"] = wrong
+        check(wrong > F32_LOGITS_REL_L2, f"{arch}: float32 reading of a "
+              f"wrong function (missing newest key) {wrong}")
+    del params
+    torch.cuda.empty_cache()
+    out = {"arch": arch, "params": n_params, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "batch": BATCH, "prompt": PROMPT,
+           "new_tokens": NEW, "init_s": init_s, "generate_s": total_s,
+           "prefill_s": prefill_s, "decode_s": decode_s,
+           "decode_tokens_per_s": BATCH * NEW / decode_s,
+           "decode_step_ms": decode_s / NEW * 1e3,
+           "max_memory_allocated_gb": peak / 1e9,
+           "launches": launches, "forward_check_ssd_launches": forward_ssd,
+           "logits_check_bf16": bf16_check, "logits_check_f32": f32_check,
+           "decode_profile": prof}
+    lines.append(out)
+    log(f"{arch}: prefill {prefill_s:.2f}s, decode "
+        f"{out['decode_tokens_per_s']:.0f} tokens/s, peak "
+        f"{peak / 1e9:.1f} GB, launches {launches}, rel L2 bf16 "
+        f"{bf16_check['rel_l2']:.3g} f32 {f32_check['rel_l2']:.3g}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: LM kernel timings
+# ---------------------------------------------------------------------------
+
+def time_decode_attn(gen, S: int, lengths: torch.Tensor) -> dict:
+    """decode_attn at qwen3-4b's serving width (B = 8, 32/8 heads,
+    dh = 128, bf16) over a cache of ``S`` positions."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_ref)
+    B, H, KVH, dh = BATCH, 32, 8, 128
+    q, k, v = decode_inputs(gen, B, H, KVH, dh, S, torch.bfloat16)
+    got = decode_attention(q, k, v, lengths)
+    want = decode_attention_ref(q, k, v, lengths)
+    err = close(got, want, TOL[torch.bfloat16]["decode"],
+                f"decode_attn at S={S}")
+    ms = device_ms(lambda: decode_attention(q, k, v, lengths), 50)
+    call_ms = median_ms(lambda: decode_attention(q, k, v, lengths), 50)
+    plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, lengths), 5)
+    # yardstick, never called by the port: SDPA over the cache's layout
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+    # (SDPA may hold the softmax weights in bf16: one bf16 unit of the
+    # weights, 2^-8, plus the output's)
+    close(library()[:, :, 0], want, dict(rtol=2e-2, atol=2e-2),
+          f"SDPA yardstick at S={S}")
+    library_ms = device_ms(library, 50)
+    kv_bytes = 2 * int(lengths.sum()) * KVH * dh * k.element_size()
+    bound_ms = (kv_bytes + 2 * q.numel() * q.element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    # q·Kᵀ has operands of the cache's type; p·V a float32 p
+    qk_flops = 2 * int(lengths.sum()) * H * dh
+    qk_rate = BF16_TC_FLOPS if k.dtype == torch.bfloat16 else F32_FLOPS
+    ops_ms = (qk_flops / qk_rate + qk_flops / F32_FLOPS) * 1e3
+    return {"S": S, "lengths": [int(n) for n in lengths.tolist()],
+            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bound_ms, ops_ms),
+            "bound_by": "bytes" if bound_ms >= ops_ms else "operations"}
+
+
+def ssd_flops(B, T, nh, G, L, dh, ds) -> tuple[int, int]:
+    """Operations (2 per multiply-add) the causal SSD scan needs: C·Bᵀ on
+    each chunk's lower triangle, once per group; then, per head, the
+    masked scores times X on the lower triangle, the carry-in C·h and the
+    state update.  The exps and the mask's multiplies are not counted."""
+    lens = [L] * (T // L) + ([T % L] if T % L else [])
+    tri = sum(n * (n + 1) // 2 for n in lens)
+    return 2 * B * G * tri * ds, 2 * B * nh * (tri * dh + 2 * T * ds * dh)
+
+
+def time_ssd(gen) -> dict:
+    """ssd at mamba2-780m's prefill shape (B = 8, T = 2048, 48 heads of
+    dh = 64, ds = 128, one group, chunk 128, bf16), with the final state
+    as the prefill asks for it."""
+    from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref
+    B, T, nh, G, dh, ds, L = BATCH, PROMPT, 48, 1, 64, 128, 128
+    x, b, c, a = ssd_inputs(gen, B, T, nh, G, dh, ds, torch.bfloat16)
+    y, h = ssd_chunked(x, b, c, a, chunk=L, return_state=True)
+    y_ref, h_ref = ssd_chunked_ref(x, b, c, a, chunk=L, return_state=True)
+    err = close(y, y_ref, TOL[torch.bfloat16]["ssd"], "ssd at serving shape")
+    close(h, h_ref, STATE_TOL, "ssd state at serving shape")
+    ms = device_ms(lambda: ssd_chunked(x, b, c, a, chunk=L,
+                                       return_state=True), 10)
+    call_ms = median_ms(lambda: ssd_chunked(x, b, c, a, chunk=L,
+                                            return_state=True), 10)
+    plain_ms = device_ms(lambda: ssd_chunked_ref(x, b, c, a, chunk=L,
+                                                 return_state=True), 3)
+    # C·Bᵀ multiplies two bf16 operands into float32, which the bf16
+    # tensor cores do exactly; every other product has a float32 operand
+    # (the decayed scores, h, the weighted b), which they would round.
+    cb_flops, f32_flops = ssd_flops(B, T, nh, G, L, dh, ds)
+    flops = cb_flops + f32_flops
+    nbytes = (2 * x.numel() * x.element_size()
+              + (b.numel() + c.numel()) * b.element_size()
+              + a.numel() * 4 + h.numel() * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (cb_flops / BF16_TC_FLOPS + f32_flops / F32_FLOPS) * 1e3
+    return {"shape": {"B": B, "T": T, "nh": nh, "G": G, "dh": dh, "ds": ds,
+                      "chunk": L},
+            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD scan",
+            "flops": flops, "flops_bf16_operands": cb_flops,
+            "flops_f32_operands": f32_flops, "bytes": nbytes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms_bf16_tensor_cores": max(
+                bytes_ms, flops / BF16_TC_FLOPS * 1e3)}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.bsr_spmv import kernel as k_spmv
+    from repro_torch.kernels.decode_attn import kernel as k_attn
+    from repro_torch.kernels.ssd import kernel as k_ssd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+    # -- phase 1: build, one nvcc per source, all at once ------------------
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        built = list(pool.map(lambda m: m.build(), (k_spmv, k_attn, k_ssd)))
+    log(f"phase 1: built {[b.path.name for b in built]} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for b in built:
+        if b.log:
+            print(b.log, file=sys.stderr)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lines: list = []
+    spmv_entry = graph_path(gen, lines)
+    torch.cuda.empty_cache()
+
+    # -- phase 5 ----------------------------------------------------------
+    reset_launches()
+    kernel_errs = hold_lm_kernels(gen)
+    log(f"phase 5: decode_attn and ssd vs plain, max |d| {kernel_errs}")
+    lines.append({"lm_kernel_checks_max_abs_err": kernel_errs})
+
+    # -- phases 6-7 -------------------------------------------------------
+    qwen = serve_model("qwen3-4b", lines)
+    check(qwen["launches"] == {"decode_attn": 36 * NEW, "ssd": 0},
+          f"qwen3-4b launches {qwen['launches']} != 36 x {NEW} decode_attn")
+    torch.cuda.empty_cache()
+    mamba = serve_model("mamba2-780m", lines)
+    check(mamba["launches"] == {"decode_attn": 0, "ssd": 48},
+          f"mamba2-780m launches {mamba['launches']} != 48 ssd")
+    check(mamba["forward_check_ssd_launches"] == 48,
+          "mamba2-780m forward did not launch ssd 48 times")
+    torch.cuda.empty_cache()
+
+    # -- phase 8 ----------------------------------------------------------
+    serve_lengths = torch.randint(PROMPT + 1, PROMPT + NEW + 1, (BATCH,),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)
+    attn_t = time_decode_attn(gen, PROMPT + NEW + 1, serve_lengths)
+    attn_32k = time_decode_attn(
+        gen, 32768, torch.full((BATCH,), 32768, dtype=torch.int32,
+                               device="cuda"))
+    ssd_t = time_ssd(gen)
+    share = 36 * attn_t["ms"] / qwen["decode_step_ms"]
+    lines.append({"decode_attn_serving": attn_t, "decode_attn_32k": attn_32k,
+                  "ssd_serving": ssd_t,
+                  "decode_attn_share_of_qwen_decode_step": share})
+    log(f"phase 8: decode_attn {attn_t['ms']:.4f} ms (bound "
+        f"{attn_t['bound_ms']:.4f}), at 32k {attn_32k['ms']:.4f} ms (bound "
+        f"{attn_32k['bound_ms']:.4f}); ssd {ssd_t['ms']:.3f} ms (bound "
+        f"{ssd_t['bound_ms']:.3f})")
+
+    for line in lines:
+        print(json.dumps(line))
+    print(json.dumps({"kernels": [spmv_entry, {
+        "name": "decode_attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+        "replaces": "src/repro/kernels/decode_attn/kernel.py:59",
+        "launches": qwen["launches"]["decode_attn"],
+        "max_abs_err": attn_t["max_abs_err"], "ms": attn_t["ms"],
+        "plain_ms": attn_t["plain_ms"], "bound_ms": attn_t["bound_ms"],
+        "bound_by": attn_t["bound_by"], "library_ms": attn_t["library_ms"],
+        "library": "F.scaled_dot_product_attention(enable_gqa=True, "
+                   "boolean length mask)",
+        "ms_32k": attn_32k["ms"], "bound_ms_32k": attn_32k["bound_ms"]}, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:66",
+        "launches": mamba["launches"]["ssd"],
+        "max_abs_err": ssd_t["max_abs_err"], "ms": ssd_t["ms"],
+        "plain_ms": ssd_t["plain_ms"], "bound_ms": ssd_t["bound_ms"],
+        "bound_by": ssd_t["bound_by"], "library_ms": None,
+        "library": ssd_t["library"],
+        "bound_ms_bf16_tensor_cores": ssd_t["bound_ms_bf16_tensor_cores"]}]}))
     print(json.dumps({"nvidia_smi": smi}))
+    if FAILURES:
+        raise RuntimeError(f"{len(FAILURES)} check(s) failed: {FAILURES}")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
-"""Carry state across from the reference package: for this system, the
-partition, not weights.
+"""Carry state across from the reference package: the partition of the
+graph path, and the parameters of the LM path.
 
 The functions take plain numpy arrays (a reference object's fields, e.g.
-``{f.name: getattr(rt, f.name) for f in dataclasses.fields(rt)}``) so that
-this package never imports the reference; the tests use them to feed both
-packages identical inputs.
+``{f.name: getattr(rt, f.name) for f in dataclasses.fields(rt)}``, or a
+parameter pytree passed through ``np.asarray``) so that this package never
+imports the reference; the tests use them to feed both packages identical
+inputs.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import torch
 
 from .bsp.partition_runtime import LocalBSR, PartitionRuntime
 from .device import resolve_device
+from .models.config import ModelConfig
+from .models.model import Decoder
 
 #: the array fields of a PartitionRuntime, as the reference names them
 RUNTIME_ARRAYS = ("local_vertex_gid", "vertex_valid", "local_edges",
@@ -55,3 +58,33 @@ def local_bsr_from_numpy(cols: np.ndarray, blocks: np.ndarray,
                     rank=as_t(rank, torch.int64),
                     block_size=int(block_size), semiring=str(semiring),
                     fill_stats=tuple(fill_stats))
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 leaves (``ml_dtypes``) travel as
+    their 16-bit patterns, so this module needs no ``ml_dtypes``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Decoder:
+    """The port's :class:`Decoder` from the reference's ``init_params``
+    pytree as numpy arrays: ``blocks/pos{p}/...`` leaves stacked on
+    ``n_super``, and ``final_norm``, ``embed``, ``unembed`` as present.
+    Layer ``i`` is super-block ``i // period`` at position ``i % period``."""
+    dev = resolve_device(device)
+    period = cfg.pattern_period
+
+    def layer(node, s):
+        if isinstance(node, dict):
+            return {k: layer(v, s) for k, v in node.items()}
+        return _tensor(np.asarray(node)[s], dev)
+
+    blocks = [layer(tree["blocks"][f"pos{i % period}"], i // period)
+              for i in range(cfg.num_layers)]
+    top = {k: _tensor(tree[k], dev) for k in ("final_norm", "embed",
+                                              "unembed") if k in tree}
+    return Decoder(cfg, blocks, top)

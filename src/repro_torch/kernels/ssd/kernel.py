@@ -1,0 +1,101 @@
+"""Mamba-2 SSD chunk scan: wrapper of the hand-written CUDA kernel.
+
+Replaces ``src/repro/kernels/ssd/kernel.py::ssd_pallas`` and its padding
+wrapper ``ops.py::ssd_chunked``; in the model it stands where the reference
+calls ``models/layers.py::ssd_jax``.  It takes the model's head-major layout,
+x ``(B, T, nh, dh)``, b/c ``(B, T, G, ds)``, a ``(B, T, nh)``; the kernel
+reads b/c of group ``h // (nh // G)`` without repeating them.  T need not be
+a multiple of ``chunk``: the kernel masks the last chunk.
+
+x, b, c are float32 or bfloat16 (alike), a is float32; y has x's dtype and
+the final state (``return_state``) is float32.
+
+A tensor on the CPU goes to the plain version (``ref.ssd_chunked_ref``); a
+tensor on a CUDA device launches the kernel or raises.  Nothing falls back.
+``ssd_chunked.launches`` counts kernel launches, never plain calls.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import pathlib
+
+import torch
+
+from .._build import Built, load_library
+from .ref import ssd_chunked_ref
+
+SOURCE = pathlib.Path(__file__).with_name("csrc") / "ssd.cu"
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def build() -> Built:
+    """Compile (at first use) and load the kernel library."""
+    built = load_library(SOURCE)
+    fn = built.lib.ssd_scan
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    built.lib.ssd_error_string.argtypes = [ctypes.c_int]
+    built.lib.ssd_error_string.restype = ctypes.c_char_p
+    return built
+
+
+def _check(x, b, c, a) -> None:
+    if x.dim() != 4 or b.dim() != 4 or c.shape != b.shape or a.dim() != 3:
+        raise ValueError(f"need x (B,T,nh,dh), b/c (B,T,G,ds), a (B,T,nh); "
+                         f"got {tuple(x.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}, {tuple(a.shape)}")
+    B, T, nh, _ = x.shape
+    if b.shape[:2] != (B, T) or a.shape != (B, T, nh) or T == 0 \
+            or nh % b.shape[2]:
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, b "
+                         f"{tuple(b.shape)}, a {tuple(a.shape)} (T >= 1 and "
+                         f"heads a multiple of groups)")
+    if not (x.dtype == b.dtype == c.dtype) or a.dtype != torch.float32:
+        raise TypeError(f"x, b, c must share a dtype and a be float32; got "
+                        f"{x.dtype}, {b.dtype}, {c.dtype}, {a.dtype}")
+    if not (x.device == b.device == c.device == a.device):
+        raise ValueError("x, b, c, a must share a device")
+
+
+def ssd_chunked(x, b, c, a, *, chunk: int = 128, return_state: bool = False):
+    """SSD scan (see module docstring): y, or (y, final state)."""
+    _check(x, b, c, a)
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, b, c, a, chunk=chunk,
+                               return_state=return_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunked runs on 'cpu' or 'cuda', got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"ssd kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    x, b, c, a = (t.contiguous() for t in (x, b, c, a))
+    B, T, nh, dh = x.shape
+    G, ds = b.shape[2], b.shape[3]
+    L = min(chunk, T)
+    y = torch.empty_like(x)
+    h_last = torch.empty((B, nh, ds, dh), dtype=torch.float32,
+                         device=x.device) if return_state else None
+    lib = build().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), b.data_ptr(),
+            c.data_ptr(), a.data_ptr(), y.data_ptr(),
+            None if h_last is None else h_last.data_ptr(),
+            B, T, nh, G, dh, ds, L, stream)
+    if err != 0:
+        # e.g. dh or ds not a multiple of 4, more than 65535 sequences, or a
+        # chunk whose working set exceeds a CTA's shared memory
+        raise RuntimeError(f"ssd kernel launch failed: "
+                           f"{lib.ssd_error_string(err).decode()} (B={B}, "
+                           f"nh={nh}, dh={dh}, ds={ds}, chunk {L})")
+    ssd_chunked.launches += 1
+    return (y, h_last) if return_state else y
+
+
+ssd_chunked.launches = 0

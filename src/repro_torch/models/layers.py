@@ -1,0 +1,319 @@
+"""Neural layers of the LM serving path: norms, RoPE, GQA attention, MLP
+and the Mamba-2 mixer, as plain functions over tensors.
+
+Ported from ``src/repro/models/layers.py``, same parameter names and
+layouts.  Where the reference computes a Pallas kernel's function in plain
+JAX, the port calls the hand-written kernel: single-token ``attention``
+with a cache calls ``kernels.decode_attn.decode_attention`` (the twin of
+``flash_attention(..., causal=False, kv_lengths=...)`` at S == 1), and
+``ssm_mixer`` calls ``kernels.ssd.ssd_chunked`` where the reference calls
+``ssd_jax``.  Prefill and training attention stay the plain blockwise
+``flash_attention``.  MLA and MoE are not ported yet (``ROADMAP.md`` §A).
+
+The reference's cast points are kept: ``rms_norm`` computes in float32 and
+casts back, ``xdt`` and ``d_skip`` are cast to x's dtype, the SSM state is
+float32.  ``mlp``'s gelu is the tanh approximation (``jax.nn.gelu``'s
+default).  The decode cache is updated in place.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.decode_attn import decode_attention
+from ..kernels.ssd import ssd_chunked
+from .config import ModelConfig
+
+MASKED = -1e30
+gelu = functools.partial(F.gelu, approximate="tanh")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _normal(gen, shape, dtype, scale):
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=dtype) * scale
+
+
+# ---------------------------------------------------------------------------
+# Norms & RoPE
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps=1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope(x, positions, theta: float, fraction: float = 1.0):
+    """x: (..., S, H, D). Rotates the first ``fraction·D`` dims."""
+    D = x.shape[-1]
+    rot = int(D * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions.float()[..., :, None, None] * freq
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (plain torch, prefill and training)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
+                    kv_lengths=None, block_q: int = 512, block_k: int = 1024):
+    """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) -> (B, Sq, H, Dv).
+
+    Online softmax over KV blocks inside a loop over Q blocks, so live
+    memory is O(block_q · block_k); padding to block multiples and the
+    -1e30 mask as in the reference.  q_offset: absolute position of q[0];
+    kv_lengths: (B,) valid KV prefix.
+    """
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(D)
+    bq, bk = min(block_q, Sq), min(block_k, Skv)
+    nq, nk = -(-Sq // bq), -(-Skv // bk)
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * bq - Sq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, nk * bk - Skv))
+    vp = F.pad(v, (0, 0, 0, 0, 0, nk * bk - Skv))
+    qp = qp.reshape(B, nq, bq, KVH, G, D)
+    kp = kp.reshape(B, nk, bk, KVH, D)
+    vp = vp.reshape(B, nk, bk, KVH, Dv)
+    dev = q.device
+    blocks = []
+    for qi in range(nq):
+        qb = qp[:, qi].float()                             # (B,bq,KVH,G,D)
+        q_pos = q_offset + qi * bq + torch.arange(bq, device=dev)
+        m = torch.full((B, KVH, G, bq), MASKED, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KVH, G, bq), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, KVH, G, bq, Dv), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kb, vb = kp[:, ki].float(), vp[:, ki].float()  # (B,bk,KVH,D)
+            k_pos = ki * bk + torch.arange(bk, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
+            mask = (k_pos < Skv)[None, :]                  # drop pad
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            if kv_lengths is not None:
+                mask = mask[None] & (
+                    k_pos[None, None, :] < kv_lengths[:, None, None])
+                s = torch.where(mask[:, None, None], s, MASKED)
+            else:
+                s = torch.where(mask[None, None, None], s, MASKED)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                    vb)
+            m = m_new
+        o = o / torch.clamp(l, min=1e-30)[..., None]
+        blocks.append(o.permute(0, 3, 1, 2, 4))            # (B,bq,KVH,G,Dv)
+    out = torch.stack(blocks, dim=1).reshape(B, nq * bq, H, Dv)
+    return out[:, :Sq].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+def head_pad_mask(cfg: ModelConfig, device=None):
+    """(Hp,) 1.0 for real q-head slots, 0.0 for in-group padding slots
+    (kv group j owns slots [j·P, (j+1)·P), the first G real); None when
+    there is no padding."""
+    Hp, H, KVH = cfg.num_heads_padded, cfg.num_heads, cfg.num_kv_heads
+    if Hp == H:
+        return None
+    g, P = H // KVH, Hp // KVH
+    real = torch.arange(KVH, device=device)[:, None] * P \
+        + torch.arange(g, device=device)[None, :]
+    mask = torch.zeros((Hp,), dtype=torch.float32, device=device)
+    mask[real.reshape(-1)] = 1.0
+    return mask
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator):
+    hd, KVH, d = cfg.head_dim_, cfg.num_kv_heads, cfg.d_model
+    Hp, dt = cfg.num_heads_padded, _dtype(cfg)
+    s = 1.0 / math.sqrt(d)
+    p = {
+        "wq": _normal(gen, (d, Hp, hd), dt, s),
+        "wk": _normal(gen, (d, KVH, hd), dt, s),
+        "wv": _normal(gen, (d, KVH, hd), dt, s),
+        "wo": _normal(gen, (Hp, hd, d), dt, s / math.sqrt(cfg.num_layers)),
+    }
+    mask = head_pad_mask(cfg, gen.device)
+    if mask is not None:
+        p["wq"] = p["wq"] * mask[None, :, None].to(dt)
+        p["wo"] = p["wo"] * mask[:, None, None].to(dt)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=gen.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=gen.device)
+    return p
+
+
+def attention(cfg: ModelConfig, p, x, positions, *, cache=None,
+              cache_len=None):
+    """x: (B, S, d).  cache: dict(k, v: (B, Smax, KVH, hd)), written in
+    place at ``cache_len``; S > 1 with a cache is prefill from an empty
+    cache, S == 1 is a decode step (the ``decode_attn`` kernel)."""
+    B, S, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        idx = cache_len[:, None] + torch.arange(S, device=x.device)[None, :]
+        rows = torch.arange(B, device=x.device)[:, None]
+        ck[rows, idx] = k
+        cv[rows, idx] = v
+        new_cache = {"k": ck, "v": cv}
+        if S == 1:
+            out = decode_attention(q[:, 0], ck, cv, cache_len + 1)[:, None]
+        else:
+            out = flash_attention(q, ck, cv, causal=True,
+                                  kv_lengths=cache_len + S,
+                                  block_q=cfg.block_q, block_k=cfg.block_k)
+    else:
+        out = flash_attention(q, k, v, causal=True,
+                              block_q=cfg.block_q, block_k=cfg.block_k)
+    mask = head_pad_mask(cfg, x.device)
+    if mask is not None:
+        out = out * mask[None, None, :, None].to(out.dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator):
+    d, f, dt = cfg.d_model, cfg.d_ff, _dtype(cfg)
+    s = 1.0 / math.sqrt(d)
+    p = {"w_down": _normal(gen, (f, d), dt, 1.0 / math.sqrt(f * cfg.num_layers))}
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = _normal(gen, (d, f), dt, s)
+        p["w_up"] = _normal(gen, (d, f), dt, s)
+    else:
+        p["w_up"] = _normal(gen, (d, f), dt, s)
+    return p
+
+
+def mlp(cfg: ModelConfig, p, x):
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        act = F.silu if cfg.mlp_type == "swiglu" else gelu
+        h = act(torch.einsum("bsd,df->bsf", x, p["w_gate"])) \
+            * torch.einsum("bsd,df->bsf", x, p["w_up"])
+    else:
+        h = gelu(torch.einsum("bsd,df->bsf", x, p["w_up"]))
+    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 mixer (SSD)
+# ---------------------------------------------------------------------------
+
+def init_ssm(cfg: ModelConfig, gen: torch.Generator):
+    d, di = cfg.d_model, cfg.d_inner
+    nh, ds, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
+    conv_ch = di + 2 * G * ds
+    dt, dev, f32 = _dtype(cfg), gen.device, torch.float32
+    return {
+        "in_proj": _normal(gen, (d, 2 * di + 2 * G * ds + nh), dt,
+                           1.0 / math.sqrt(d)),
+        "conv_w": _normal(gen, (cfg.conv_width, conv_ch), dt,
+                          1.0 / math.sqrt(cfg.conv_width)),
+        "conv_b": torch.zeros((conv_ch,), dtype=dt, device=dev),
+        "a_log": torch.zeros((nh,), dtype=f32, device=dev),
+        "dt_bias": torch.zeros((nh,), dtype=f32, device=dev),
+        "d_skip": torch.ones((nh,), dtype=f32, device=dev),
+        "out_norm": torch.ones((di,), dtype=dt, device=dev),
+        "out_proj": _normal(gen, (di, d), dt,
+                            1.0 / math.sqrt(di * cfg.num_layers)),
+    }
+
+
+def _causal_conv(u, w, b):
+    """u: (B, T, C) depthwise causal conv, width W; returns same shape.
+
+    A sum of shifted products, as in the reference: ``F.conv1d`` would run
+    in TF32 under cuDNN's default on the card."""
+    W, T = w.shape[0], u.shape[1]
+    # shifted i: position t sees u[t - (W-1-i)]
+    out = sum(F.pad(u, (0, 0, W - 1 - i, i))[:, :T] * w[i][None, None, :]
+              for i in range(W))
+    return out + b[None, None, :]
+
+
+def ssm_mixer(cfg: ModelConfig, p, x, *, state=None):
+    """Mamba-2 block.  state: dict(conv: (B, W-1, C), ssm: (B,nh,ds,dh))
+    for single-step decode; "prefill" to also return the state after x;
+    None for full-sequence (training)."""
+    B, T, _ = x.shape
+    di, nh, ds, G = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
+    dh = cfg.ssm_head_dim
+    proj = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
+    z, xs, bc, dt = torch.split(proj, [di, di, 2 * G * ds, nh], dim=-1)
+    conv_in = torch.cat([xs, bc], dim=-1)                  # (B,T,C)
+    new_state = None
+    decode = isinstance(state, dict)
+    if decode:
+        # roll the conv buffer one step (T == 1)
+        hist = torch.cat([state["conv"], conv_in], dim=1)  # (B,W,C)
+        conv = F.silu(torch.einsum("bwc,wc->bc", hist, p["conv_w"])
+                      + p["conv_b"])[:, None, :]
+        new_conv = hist[:, 1:]
+    else:
+        conv = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+    xs, b, c = torch.split(conv, [di, G * ds, G * ds], dim=-1)
+    xh = xs.reshape(B, T, nh, dh)
+    bh = b.reshape(B, T, G, ds)
+    ch = c.reshape(B, T, G, ds)
+    dt = F.softplus(dt.float() + p["dt_bias"])             # (B,T,nh)
+    a = -torch.exp(p["a_log"])[None, None, :] * dt         # log decay
+    xdt = xh * dt[..., None].to(xh.dtype)
+    if state == "prefill":
+        y, h_last = ssd_chunked(xdt, bh, ch, a, chunk=cfg.ssd_chunk,
+                                return_state=True)
+        new_state = {"conv": conv_in[:, -(cfg.conv_width - 1):],
+                     "ssm": h_last}
+    elif state is None:
+        y = ssd_chunked(xdt, bh, ch, a, chunk=cfg.ssd_chunk)
+    else:
+        # single-step recurrence: h = exp(a) h + B x ; y = C h
+        rep = nh // G
+        b1 = bh[:, 0].repeat_interleave(rep, dim=1).float()  # (B,nh,ds)
+        c1 = ch[:, 0].repeat_interleave(rep, dim=1).float()
+        x1 = xdt[:, 0].float()                             # (B,nh,dh)
+        h = torch.exp(a[:, 0])[..., None, None] * state["ssm"] \
+            + b1[..., :, None] * x1[..., None, :]
+        y = torch.einsum("bhs,bhsd->bhd", c1, h)[:, None].to(x.dtype)
+        new_state = {"conv": new_conv, "ssm": h}
+    y = y.reshape(B, T, nh, dh)
+    y = y + p["d_skip"][None, None, :, None].to(y.dtype) * \
+        xdt.reshape(B, T, nh, dh)
+    y = y.reshape(B, T, di)
+    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
+    return torch.einsum("bsk,kd->bsd", y, p["out_proj"]), new_state

@@ -1,0 +1,221 @@
+"""Decoder stack of the LM serving path: a ``Decoder`` module of sub-layers.
+
+Ported from ``src/repro/models/model.py``.  The reference scans
+``num_layers / pattern_period`` super-blocks over parameters stacked on
+that axis; here each sub-layer is its own ``Block`` in an ``nn.ModuleList``
+(layer ``i`` is super-block ``i // period``, pattern position
+``i % period``), run by a Python loop.  The reference's ``_constrain_act``
+(a sharding constraint between sub-layers) is a no-op on one device and is
+left out.
+
+API:
+  init_params(cfg, seed, device)          -> Decoder
+  forward(cfg, params, inputs)            -> logits                (B, S, V)
+  init_cache(cfg, batch, max_len, device) -> cache
+  decode_step(cfg, params, cache, tokens, cache_len)
+                                          -> (logits, cache)
+      S > 1 with an all-zero cache_len acts as prefill.
+
+The cache keeps the reference's pytree layout, ``{"pos{p}": {leaf: tensor
+stacked on n_super}}``, and ``decode_step`` updates it in place (the
+returned cache is the same object).  Dense GQA and SSM archs are ported;
+MLA, MoE and hybrid patterns raise ``NotImplementedError`` (``ROADMAP.md``
+§A).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+
+def _dt(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.attn_type == "mla" or cfg.num_experts or cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA, MoE and hybrid archs are not ported yet "
+            f"(ROADMAP.md §A)")
+
+
+def _params(tensors: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+class Block(nn.Module):
+    """One sub-layer: ``ln1``, ``mixer`` (attention or SSM), and with
+    ``d_ff > 0`` ``ln2`` and ``ffn``, named as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, pos: int, tensors: dict):
+        super().__init__()
+        self.kind = cfg.layer_kind(pos)
+        self.ln1 = nn.Parameter(tensors["ln1"], requires_grad=False)
+        self.mixer = _params(tensors["mixer"])
+        if cfg.d_ff > 0:
+            self.ln2 = nn.Parameter(tensors["ln2"], requires_grad=False)
+            self.ffn = _params(tensors["ffn"])
+
+
+class Decoder(nn.Module):
+    """Parameters of the decoder: ``embed``/``unembed``, ``final_norm`` and
+    ``layers`` (one ``Block`` per sub-layer)."""
+
+    def __init__(self, cfg: ModelConfig, blocks: list[dict], top: dict):
+        super().__init__()
+        _check_supported(cfg)
+        period = cfg.pattern_period
+        self.layers = nn.ModuleList(Block(cfg, i % period, t)
+                                    for i, t in enumerate(blocks))
+        for name, t in top.items():
+            setattr(self, name, nn.Parameter(t, requires_grad=False))
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_sublayer(cfg: ModelConfig, pos: int, gen: torch.Generator):
+    dev, dt = gen.device, _dt(cfg)
+    p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
+    if cfg.layer_kind(pos) == "attn":
+        p["mixer"] = L.init_attention(cfg, gen)
+    else:
+        p["mixer"] = L.init_ssm(cfg, gen)
+    if cfg.d_ff > 0:
+        p["ln2"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
+        p["ffn"] = L.init_mlp(cfg, gen)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Decoder:
+    """Random weights with the reference's scales and per-leaf dtypes,
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``
+    (other bits than the reference's ``jax.random``)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    period = cfg.pattern_period
+    if cfg.num_layers % period:
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} % period "
+                         f"{period} != 0")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = [_init_sublayer(cfg, i % period, gen)
+              for i in range(cfg.num_layers)]
+    dt = _dt(cfg)
+    top = {"final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
+    if cfg.input_mode == "tokens":
+        top["embed"] = L._normal(gen, (cfg.vocab_size, cfg.d_model), dt,
+                                 0.02)
+    if cfg.input_mode != "tokens" or not cfg.tie_embeddings:
+        top["unembed"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), dt,
+                                   1.0 / math.sqrt(cfg.d_model))
+    return Decoder(cfg, blocks, top)
+
+
+# ---------------------------------------------------------------------------
+# sub-layer application
+# ---------------------------------------------------------------------------
+
+def _apply_block(cfg, blk: Block, x, positions, cache, cache_len, mode):
+    h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+    if blk.kind == "attn":
+        y, new_cache = L.attention(cfg, blk.mixer, h, positions,
+                                   cache=cache, cache_len=cache_len)
+    else:
+        state = cache if mode == "decode" else (
+            "prefill" if mode == "prefill" else None)
+        y, new_cache = L.ssm_mixer(cfg, blk.mixer, h, state=state)
+    x = x + y
+    if cfg.d_ff > 0:
+        h = L.rms_norm(x, blk.ln2, cfg.norm_eps)
+        x = x + L.mlp(cfg, blk.ffn, h)
+    return x, new_cache
+
+
+def _stack(cfg, params: Decoder, x, positions, cache, cache_len, mode):
+    """Run every block; with a cache, write each block's new state into its
+    slot of the stacked cache."""
+    period = cfg.pattern_period
+    for i, blk in enumerate(params.layers):
+        slot = None if cache is None else {
+            k: t[i // period] for k, t in cache[f"pos{i % period}"].items()}
+        x, new = _apply_block(cfg, blk, x, positions, slot, cache_len, mode)
+        if slot is not None:
+            for k, t in new.items():
+                if t is not slot[k]:
+                    slot[k].copy_(t)
+    return x
+
+
+def _embed_in(cfg, params, inputs):
+    if cfg.input_mode == "tokens":
+        return params.embed[inputs].to(_dt(cfg))
+    return inputs.to(_dt(cfg))
+
+
+def _logits_out(cfg, params, x):
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    if cfg.input_mode == "tokens" and cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params.embed)
+    return torch.einsum("bsd,dv->bsv", x, params.unembed)
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: Decoder, inputs):
+    """Full-sequence forward: inputs (B, S) tokens or (B, S, d) embeddings."""
+    x = _embed_in(cfg, params, inputs)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _stack(cfg, params, x, positions, None, None, mode="train")
+    return _logits_out(cfg, params, x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               dtype=None):
+    """Decode cache, stacked (n_super, ...) per pattern position, zeros."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dt = dtype or _dt(cfg)
+    n_super = cfg.num_layers // cfg.pattern_period
+    hd, KVH = cfg.head_dim_, cfg.num_kv_heads
+    out = {}
+    for pos in range(cfg.pattern_period):
+        if cfg.layer_kind(pos) == "attn":
+            shape = (n_super, batch, max_len, KVH, hd)
+            c = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+        else:
+            conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            c = {"conv": torch.zeros((n_super, batch, cfg.conv_width - 1,
+                                      conv_ch), dtype=dt, device=dev),
+                 "ssm": torch.zeros((n_super, batch, cfg.ssm_heads,
+                                     cfg.ssm_state, cfg.ssm_head_dim),
+                                    dtype=torch.float32, device=dev)}
+        out[f"pos{pos}"] = c
+    return out
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Decoder, cache, tokens, cache_len):
+    """One serving step.
+
+    tokens: (B, S) or (B, S, d); S == 1 => decode, S > 1 (cache_len == 0)
+    => prefill.  Returns (logits (B, S, vocab), cache), the cache updated
+    in place.
+    """
+    S = tokens.shape[1]
+    mode = "decode" if S == 1 else "prefill"
+    x = _embed_in(cfg, params, tokens)
+    positions = cache_len[:, None] + torch.arange(S, device=x.device)[None, :]
+    x = _stack(cfg, params, x, positions, cache, cache_len, mode)
+    return _logits_out(cfg, params, x), cache

@@ -1,6 +1,7 @@
-"""Port tests that need a CUDA device: the hand-written kernel against its
-plain version, and the device-built layout and PageRank against the same
-code on the CPU.  They skip where ``torch.cuda.is_available()`` is False.
+"""Port tests that need a CUDA device: the hand-written kernels against
+their plain versions, the device-built layout and PageRank against the
+same code on the CPU, and the reduced LM configs on the card against the
+CPU.  They skip where ``torch.cuda.is_available()`` is False.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine that has only the port's dependencies:
@@ -8,7 +9,13 @@ GPU machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: (min, +) and (or, and) bitwise; (+, ×) rtol=1e-5 (float32
-sums reassociate); PageRank atol=1e-6, rtol=1e-5.
+sums reassociate); PageRank atol=1e-6, rtol=1e-5.  decode_attn and ssd in
+float32 as the JAX kernel tests hold them (2e-5 and 2e-4); in bfloat16
+as ``chip_smoke.py`` holds them: both versions see the same bf16 inputs
+and differ in float32 summation order only, which can move the rounded
+output by one bf16 unit (2^-8 relative), so rtol=2^-7 with atol 1e-4
+(decode) and 1e-3 (SSD, sums of up to 128 terms); the SSD state stays
+float32 (2e-4).
 """
 import numpy as np
 import pytest
@@ -17,7 +24,13 @@ import torch
 from repro_torch.bsp import PartitionRuntime, pagerank
 from repro_torch.core import scaled_paper_cluster, windgp
 from repro_torch.data import rmat
+from repro_torch.configs import get_reduced
 from repro_torch.kernels import bsr_spmv as port_k
+from repro_torch.kernels.decode_attn import (decode_attention,
+                                             decode_attention_ref)
+from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
+from repro_torch.models import forward, init_params
+from repro_torch.serve import generate
 
 pytestmark = pytest.mark.gpu
 
@@ -98,3 +111,91 @@ def test_pagerank_pallas_matches_scatter(runtimes):
     np.testing.assert_allclose(pr, pr_s, atol=1e-6, rtol=1e-5)
     np.testing.assert_allclose(pr, pr_cpu, atol=1e-6, rtol=1e-5)
     assert act.shape == (10, rt.p)
+
+
+TOL = {torch.float32: {"decode": dict(rtol=2e-5, atol=2e-5),
+                       "ssd": dict(rtol=2e-4, atol=2e-4)},
+       torch.bfloat16: {"decode": dict(rtol=2 ** -7, atol=1e-4),
+                        "ssd": dict(rtol=2 ** -7, atol=1e-3)}}
+STATE_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,dh,S", [
+    (3, 8, 2, 128, 300),      # GQA, S not a multiple of the split or tile
+    (2, 4, 4, 32, 77),        # MHA, the reduced configs' head dim
+    (2, 16, 1, 64, 600),      # MQA
+])
+def test_decode_attn_matches_plain(cuda, dtype, B, H, KVH, dh, S):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((B, H, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, S, KVH, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, S, KVH, dh), generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor([S, 0, S // 3 + 1][:B], dtype=torch.int32,
+                        device=cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert got.dtype == dtype
+    want = decode_attention_ref(q, k, v, lens)
+    tol = TOL[dtype]["decode"]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # lengths == 0: the uniform mean of V over all S
+    torch.testing.assert_close(
+        got[1].float(), v[1].float().mean(0).repeat_interleave(
+            H // KVH, dim=0), **tol)
+    full = decode_attention(q, k, v)
+    torch.testing.assert_close(full.float(),
+                               decode_attention_ref(q, k, v).float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,nh,G,dh,ds,chunk,decay", [
+    (2, 300, 4, 2, 64, 128, 128, 0.1),   # ragged T, groups, full-width tile
+    (1, 100, 2, 1, 32, 16, 16, 0.1),     # the reduced config's shape
+    (1, 256, 1, 1, 16, 8, 64, 5.0),      # strong decay
+])
+def test_ssd_matches_plain(cuda, dtype, B, T, nh, G, dh, ds, chunk, decay):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((B, T, nh, dh), generator=gen, device=cuda).to(dtype)
+    b = (0.5 * torch.randn((B, T, G, ds), generator=gen,
+                           device=cuda)).to(dtype)
+    c = (0.5 * torch.randn((B, T, G, ds), generator=gen,
+                           device=cuda)).to(dtype)
+    a = -decay * torch.rand((B, T, nh), generator=gen, device=cuda)
+    if decay > 1:
+        a = torch.full_like(a, -decay)
+    before = ssd_chunked.launches
+    y, h = ssd_chunked(x, b, c, a, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_chunked.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    y_ref, h_ref = ssd_chunked_ref(x, b, c, a, chunk=chunk,
+                                   return_state=True)
+    tol = TOL[dtype]["ssd"]
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    torch.testing.assert_close(h, h_ref, **STATE_TOL)
+    # one head and one group against the sequential recurrence
+    if G == nh == 1:
+        flat = (x[:, :, 0], b[:, :, 0], c[:, :, 0], a[:, :, 0])
+        torch.testing.assert_close(y[:, :, 0].float(),
+                                   ssd_ref(*flat).float(), **tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+def test_reduced_model_card_matches_cpu(cuda, arch):
+    cfg = get_reduced(arch)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(3))
+    on_cpu = init_params(cfg, 0, "cpu")
+    on_gpu = init_params(cfg, 0, "cpu").to(cuda)    # .to moves in place
+    got = forward(cfg, on_gpu, prompts.to(cuda))
+    torch.testing.assert_close(got.cpu(), forward(cfg, on_cpu, prompts),
+                               rtol=1e-4, atol=1e-4)
+    kern = (decode_attention if cfg.family == "dense" else ssd_chunked)
+    before = kern.launches
+    toks = generate(cfg, on_gpu, prompts.to(cuda), 4)
+    assert kern.launches > before
+    assert torch.equal(toks.cpu(),
+                       generate(cfg, on_cpu, prompts, 4, device="cpu"))

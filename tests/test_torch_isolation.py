@@ -33,7 +33,9 @@ def test_no_forbidden_imports(path):
 def test_import_leaves_jax_unloaded():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch.launch.partition, repro_torch.bsp, "
-            "repro_torch.convert; "
+            "repro_torch.convert, repro_torch.models, repro_torch.serve, "
+            "repro_torch.configs, repro_torch.kernels.decode_attn, "
+            "repro_torch.kernels.ssd; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]; "
             "assert not bad, bad")
