@@ -44,9 +44,12 @@ the script exit non-zero after it has printed what it measured):
 8. time ``decode_attn`` at the serving shape and at S = 32768, and
    ``ssd`` at the serving shape, beside their plain versions, a library
    call where one exists, and their bounds.  These times are device time
-   from torch.profiler (``ms``; CUDA events around the wrapper call,
-   host launch overhead included, are ``call_ms``); ``bsr_spmv``'s 14 ms
-   launches are timed with CUDA events.
+   from torch.profiler (``ms``, and by kernel with launches per call);
+   beside them CUDA events around each call (``call_ms``) and around
+   back-to-back calls (``batched_ms``), and the host's time to issue a
+   call (``host_ms``), which tell launch overhead from device time;
+   ``decode_attn`` also reports its split plan and CTA count.
+   ``bsr_spmv``'s 14 ms launches are timed with CUDA events.
 
 It prints JSON lines (sizes, memory, times, checks, the kernel table
 line), the ``nvidia-smi`` name and power limit, and last
@@ -73,6 +76,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12            # float32 outside the tensor cores
 BF16_TC_FLOPS = 989e12       # bf16 on the tensor cores, dense
+
+#: per SM (sm_90): shared memory
+SM_SHARED_BYTES = 228 * 1024
+#: the ssd bfloat16 kernel: bf16 passes of each product with a float32
+#: operand (its hi and lo parts)
+SSD_SPLIT_PASSES = 2
 
 GRAPH = "graph500:16"
 ITERS = 20
@@ -148,23 +157,93 @@ def is_device_event(e) -> bool:
     return e.device_type == torch.autograd.DeviceType.CUDA
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time (ms) per call of ``fn()``: the time of the kernels and
-    copies it ran, as torch.profiler records them over ``reps`` calls after
-    one warm-up.  CUDA events around a call would also count the host's
-    launch overhead, which can exceed a short kernel's own time."""
+def profile_calls(fn, reps: int, warmup: bool = True) -> list:
+    """Device events by kernel (torch.profiler ``key_averages``) of
+    ``reps`` calls of ``fn()``.  The first launches after the profiler
+    starts can go unrecorded, so with ``warmup`` a few spin kernels
+    (``torch.cuda._sleep``) run before and after the calls, and are left
+    out of the events."""
     from torch.profiler import ProfilerActivity, profile
+
+    def spin():
+        if warmup:
+            for _ in range(8):
+                torch.cuda._sleep(10_000)
+            torch.cuda.synchronize()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        spin()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if is_device_event(e))
-    check(total > 0, "the profiler recorded no device time")
-    return total / reps / 1e3
+        spin()
+    events = [e for e in prof.key_averages() if is_device_event(e)
+              and "spin_kernel" not in e.key]
+    check(sum(e.self_device_time_total for e in events) > 0,
+          "the profiler recorded no device time")
+    return events
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time (ms) per call of ``fn()``: the time of the kernels and
+    copies it ran, as torch.profiler records them over ``reps`` calls.
+    CUDA events around a call would also count the host's launch
+    overhead, which can exceed a short kernel's own time."""
+    events = profile_calls(fn, reps)
+    return sum(e.self_device_time_total for e in events) / reps / 1e3
+
+
+def timing(fn, reps: int, wrapper) -> dict:
+    """Where a call's time goes for a kernel's wrapper ``fn()``, which
+    launches its kernel once a call (``wrapper.launches`` counts them):
+    ``ms``, the kernel's device time a launch (the mean of its profiler
+    events); ``profiler_ms``, all device time the profiler recorded per
+    call, and ``kernels``, its events a call and ms an event by name;
+    ``call_ms``, CUDA events around each call with a synchronize after it
+    (median), which also count the host's time from the start event to
+    the launch; ``batched_ms``, CUDA events around ``reps`` calls issued
+    back to back; ``host_ms``, the host's time to issue one call
+    (perf_counter, no synchronize inside the window).  The ``_without_
+    warmup`` readings repeat the profile without the spin kernels: the
+    events it records a call, and its device time a call."""
+    before = wrapper.launches
+    events = profile_calls(fn, reps)
+    check(wrapper.launches - before == reps + 1,
+          f"{wrapper.__name__} launched {wrapper.launches - before} times "
+          f"for {reps + 1} calls")
+    unpadded = profile_calls(fn, reps, warmup=False)
+    kernels = {e.key[:80]: {"events_per_call": e.count / reps,
+                            "ms_per_event": e.self_device_time_total
+                            / max(e.count, 1) / 1e3} for e in events}
+    mine = [e for e in events if "decode_attn" in e.key
+            or "ssd_scan" in e.key]
+    check(len(mine) == 1, f"expected one kernel in the profile, got "
+          f"{list(kernels)}")
+    ms = (mine[0].self_device_time_total / max(mine[0].count, 1) / 1e3
+          if mine else float("nan"))
+    call_ms = median_ms(fn, reps)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_s = time.perf_counter() - t0
+    end.synchronize()
+    return {"ms": ms, "profiler_ms": sum(e.self_device_time_total
+                                         for e in events) / reps / 1e3,
+            "kernels": kernels,
+            "events_per_call_without_warmup": sum(
+                e.count for e in unpadded) / reps,
+            "profiler_ms_without_warmup": sum(
+                e.self_device_time_total for e in unpadded) / reps / 1e3,
+            "call_ms": call_ms,
+            "batched_ms": start.elapsed_time(end) / reps,
+            "host_ms": host_s / reps * 1e3}
 
 
 def max_err(got, want) -> float:
@@ -370,7 +449,7 @@ def hold_lm_kernels(gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         # serving width, Smax = 2113 (prompt + new + 1): no multiple of the
-        # 32-row tile or the 256-position split; ragged lengths and a 0
+        # 32-row tile or of the planned split; ragged lengths and a 0
         B, H, KVH, dh, S = 4, 32, 8, 128, PROMPT + NEW + 1
         q, k, v = decode_inputs(gen, B, H, KVH, dh, S, dtype)
         lens = torch.tensor([S, 0, 1000, 1], dtype=torch.int32,
@@ -666,14 +745,17 @@ def time_decode_attn(gen, S: int, lengths: torch.Tensor) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref)
+    from repro_torch.kernels.decode_attn.kernel import plan as attn_plan
     B, H, KVH, dh = BATCH, 32, 8, 128
     q, k, v = decode_inputs(gen, B, H, KVH, dh, S, torch.bfloat16)
     got = decode_attention(q, k, v, lengths)
     want = decode_attention_ref(q, k, v, lengths)
     err = close(got, want, TOL[torch.bfloat16]["decode"],
                 f"decode_attn at S={S}")
-    ms = device_ms(lambda: decode_attention(q, k, v, lengths), 50)
-    call_ms = median_ms(lambda: decode_attention(q, k, v, lengths), 50)
+    launch = attn_plan(q, k)
+    times = timing(lambda: decode_attention(q, k, v, lengths), 50,
+                   decode_attention)
+    ms = times["ms"]
     plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, lengths), 5)
     # yardstick, never called by the port: SDPA over the cache's layout
     mask = (torch.arange(S, device="cuda")[None, :]
@@ -696,7 +778,7 @@ def time_decode_attn(gen, S: int, lengths: torch.Tensor) -> dict:
     qk_rate = BF16_TC_FLOPS if k.dtype == torch.bfloat16 else F32_FLOPS
     ops_ms = (qk_flops / qk_rate + qk_flops / F32_FLOPS) * 1e3
     return {"S": S, "lengths": [int(n) for n in lengths.tolist()],
-            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "max_abs_err": err, "ms": ms, "timing": times, "plan": launch,
             "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bound_ms, ops_ms),
             "bound_by": "bytes" if bound_ms >= ops_ms else "operations"}
@@ -717,39 +799,46 @@ def time_ssd(gen) -> dict:
     dh = 64, ds = 128, one group, chunk 128, bf16), with the final state
     as the prefill asks for it."""
     from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref
+    from repro_torch.kernels.ssd.kernel import SUB_CHUNK, tc_smem_bytes
     B, T, nh, G, dh, ds, L = BATCH, PROMPT, 48, 1, 64, 128, 128
+    ssd_smem = tc_smem_bytes(dh, ds)
     x, b, c, a = ssd_inputs(gen, B, T, nh, G, dh, ds, torch.bfloat16)
     y, h = ssd_chunked(x, b, c, a, chunk=L, return_state=True)
     y_ref, h_ref = ssd_chunked_ref(x, b, c, a, chunk=L, return_state=True)
     err = close(y, y_ref, TOL[torch.bfloat16]["ssd"], "ssd at serving shape")
     close(h, h_ref, STATE_TOL, "ssd state at serving shape")
-    ms = device_ms(lambda: ssd_chunked(x, b, c, a, chunk=L,
-                                       return_state=True), 10)
-    call_ms = median_ms(lambda: ssd_chunked(x, b, c, a, chunk=L,
-                                            return_state=True), 10)
+    times = timing(lambda: ssd_chunked(x, b, c, a, chunk=L,
+                                       return_state=True), 10, ssd_chunked)
+    ms = times["ms"]
     plain_ms = device_ms(lambda: ssd_chunked_ref(x, b, c, a, chunk=L,
                                                  return_state=True), 3)
-    # C·Bᵀ multiplies two bf16 operands into float32, which the bf16
-    # tensor cores do exactly; every other product has a float32 operand
-    # (the decayed scores, h, the weighted b), which they would round.
-    cb_flops, f32_flops = ssd_flops(B, T, nh, G, L, dh, ds)
-    flops = cb_flops + f32_flops
     nbytes = (2 * x.numel() * x.element_size()
               + (b.numel() + c.numel()) * b.element_size()
               + a.numel() * 4 + h.numel() * 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (cb_flops / BF16_TC_FLOPS + f32_flops / F32_FLOPS) * 1e3
+    # the bound counts the products as the kernel performs them, on the
+    # bf16 tensor cores: its own sub-chunks, C·Bᵀ (bf16 operands, exact)
+    # once per group, and each product with a float32 operand (the decayed
+    # scores, h, w ⊙ x) in two passes, its hi and lo bf16 parts
+    cb_flops, f32_flops = ssd_flops(B, T, nh, G, SUB_CHUNK, dh, ds)
+    ops_ms = (cb_flops + SSD_SPLIT_PASSES * f32_flops) / BF16_TC_FLOPS * 1e3
+    # beside it, the reference's arithmetic at the caller's chunk: C·Bᵀ on
+    # the bf16 tensor cores, the float32-operand products at 67 TFLOP/s
+    ref_cb, ref_f32 = ssd_flops(B, T, nh, G, L, dh, ds)
+    ref_ops_ms = (ref_cb / BF16_TC_FLOPS + ref_f32 / F32_FLOPS) * 1e3
     return {"shape": {"B": B, "T": T, "nh": nh, "G": G, "dh": dh, "ds": ds,
-                      "chunk": L},
-            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                      "chunk": L, "sub_chunk": SUB_CHUNK},
+            "ctas": B * nh, "smem_bytes": ssd_smem,
+            "ctas_per_sm_by_smem": SM_SHARED_BYTES // (ssd_smem + 1024),
+            "max_abs_err": err, "ms": ms, "timing": times,
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD scan",
-            "flops": flops, "flops_bf16_operands": cb_flops,
-            "flops_f32_operands": f32_flops, "bytes": nbytes,
+            "flops_bf16_operands": cb_flops, "flops_f32_operands": f32_flops,
+            "bf16_passes_of_f32_operands": SSD_SPLIT_PASSES,
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bound_ms_bf16_tensor_cores": max(
-                bytes_ms, flops / BF16_TC_FLOPS * 1e3)}
+            "bound_ms_reference_arithmetic": max(bytes_ms, ref_ops_ms)}
 
 
 def main() -> int:
@@ -833,7 +922,12 @@ def main() -> int:
         "bound_by": attn_t["bound_by"], "library_ms": attn_t["library_ms"],
         "library": "F.scaled_dot_product_attention(enable_gqa=True, "
                    "boolean length mask)",
-        "ms_32k": attn_32k["ms"], "bound_ms_32k": attn_32k["bound_ms"]}, {
+        "kernels_by_name": attn_t["timing"]["kernels"],
+        "ctas": attn_t["plan"]["ctas"], "slots": attn_t["plan"]["slots"],
+        "split_len": attn_t["plan"]["split_len"],
+        "ms_32k": attn_32k["ms"], "bound_ms_32k": attn_32k["bound_ms"],
+        "library_ms_32k": attn_32k["library_ms"],
+        "ctas_32k": attn_32k["plan"]["ctas"]}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:66",
@@ -841,8 +935,9 @@ def main() -> int:
         "max_abs_err": ssd_t["max_abs_err"], "ms": ssd_t["ms"],
         "plain_ms": ssd_t["plain_ms"], "bound_ms": ssd_t["bound_ms"],
         "bound_by": ssd_t["bound_by"], "library_ms": None,
-        "library": ssd_t["library"],
-        "bound_ms_bf16_tensor_cores": ssd_t["bound_ms_bf16_tensor_cores"]}]}))
+        "library": ssd_t["library"], "ctas": ssd_t["ctas"],
+        "bound_ms_reference_arithmetic":
+            ssd_t["bound_ms_reference_arithmetic"]}]}))
     print(json.dumps({"nvidia_smi": smi}))
     if FAILURES:
         raise RuntimeError(f"{len(FAILURES)} check(s) failed: {FAILURES}")

@@ -10,35 +10,56 @@
 //
 // in float32, written in q's type (float or bfloat16).
 //
-// What bounds it: every K and V byte up to lengths[b] is read once and used
-// for G heads, ~4*G flops a byte, far below the card's ~20 f32 flops a byte:
-// the kernel is bandwidth-bound, (K + V bytes up to the lengths + q + out)
-// over 3.35 TB/s.  Its design:
+// What bounds it on this card: every K and V byte up to lengths[b] is read
+// once and used for G heads, ~4*G flops a byte, far below the ~20 float32
+// flops a byte of an H100: bytes, (K + V up to the lengths + q + out) over
+// 3.35 TB/s.  To reach that the card needs ~25 KB in flight per SM, every
+// SM busy for the whole call, and no second pass.  The design:
 //
-// * The TPU kernel carries (m, l, acc) in scratch across a sequential KV
-//   grid axis.  CUDA CTAs run in no order, so S is split: CTA (split, kvh, b)
-//   runs the online softmax over its SPLIT positions and writes its partial
-//   (m, l, acc) to scratch; a second kernel combines the partials of each
-//   (b, h).  At B*KVH = 64 a CTA per (b, kvh) would fill under half the SMs.
-// * One warp per query head of the group, so each K/V tile is read from
-//   device memory once for all G heads.  Tiles of 32 positions are copied
-//   to shared memory in their storage type with cp.async, two stages deep,
-//   so the next tile's loads overlap this tile's arithmetic; rows are
-//   padded by 16 bytes against bank conflicts.  Lane j scores position j
-//   (16-byte reads of its K row, q broadcast from shared memory as
-//   float32); the p.V product broadcasts p_j with a shuffle and every lane
-//   accumulates dh/32 output columns.
+// * One launch.  The TPU kernel carries (m, l, acc) across a sequential KV
+//   grid axis; CUDA CTAs run in no order, so S is split over CTAs (split,
+//   kvh, b).  The split length is chosen on the host from Smax and the
+//   card's SM count (kernel.py::plan_splits), so the grid is about one
+//   wave of 3 CTAs an SM: at the serving shape (B*KVH = 64, Smax 2113) 6
+//   splits of 384 positions, 384 CTAs.  Each CTA writes its partial
+//   (m, l, acc) and takes a ticket from a per-(b, kvh) counter; the last
+//   CTA to finish merges the partials of its G heads and resets the
+//   counter to 0 for the next call.  With one split the CTA writes the
+//   output directly.
+// * The ring: tiles of 32 positions are copied in their storage type with
+//   16-byte cp.async and an L2::128B prefetch hint, 2 deep in the
+//   tensor-core kernel (35 KB a CTA at dh 128) and 4 deep in the CUDA-core
+//   kernel where a row is at most 256 bytes, else 2; one __syncthreads a
+//   tile.  Measured on an H100 (tools/sweep_decode_attn.py): 2 stages beat
+//   4 at the same grid, and 3 CTAs an SM beat filling every slot the
+//   shared memory allows (6).
+// * bf16 with G <= 8 (decode_attn_tc, the serving path): q.K runs on the
+//   tensor cores, mma.sync.m16n8k16 with the group's G heads as the rows of
+//   A (padded to 16; q and K are bf16, so the products are exact and
+//   summed in float32).  Each of the 4 warps takes 8 positions of every
+//   tile for all G heads and keeps its own online softmax; the 4 states
+//   merge in shared memory at the end of the CTA.  p.V stays float32 on
+//   the CUDA cores, as in the reference (rounding p to bf16 would be a
+//   different result): lane i holds columns [i*dh/32, (i+1)*dh/32) of
+//   every head, reads a position's V slice with one vector load and takes
+//   p by shuffle.  Per position the CTA issues ~25 instructions against
+//   ~100 with one warp per head (the float32 instance, below), which
+//   issued too slowly to keep the loads in flight.
+// * float32, or G > 8 (decode_attn_kernel): one warp per query head of the
+//   group; lane i holds q's columns [i*dh/32, (i+1)*dh/32) in registers; q.K
+//   is a vector load of each row's slice, dh/32 FMAs and a transposing
+//   shuffle reduction (31 shuffles a tile) that leaves position j's score
+//   in lane j; p.V as above.  Float32 arithmetic throughout.
+// * Either way K and V are read from device memory once for all G heads.
 // * Ragged lengths: a CTA stops at lengths[b] (for lengths >= 1 a masked
 //   weight exp(-1e30 - m) is exactly 0 in float32, so skipping is exact);
-//   splits past the length write an empty state (m = -inf, l = 0).  With
-//   lengths[b] <= 0 every position is masked and all Smax are visited, which
-//   gives the reference's uniform mean of V.
+//   splits past the length skip their loads and write an empty state
+//   (m = -inf, l = 0).  With lengths[b] <= 0 every position is masked and
+//   all Smax are visited, which gives the reference's uniform mean of V.
 // * lengths stays on the device: the host never reads it.
 //
-// The wrapper takes dh a multiple of 32 (up to 256) and 16-byte aligned
-// k and v.  Build without --use_fast_math (expf, not __expf): the float32
-// tolerance against the plain version is 2e-5.  TMA and bf16 tensor-core
-// dot products are later work.
+// Build without --use_fast_math (expf, not __expf): the float32 tolerance against the
+// plain version is 2e-5.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,17 +67,20 @@
 
 namespace {
 
-constexpr int kTile = 32;            // KV positions staged at once (one per lane)
+constexpr int kTile = 32;            // KV positions a tile (one per lane)
 constexpr float kMasked = -1e30f;    // the reference's additive mask
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <class T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// ring depth: 4 stages where a row is at most 256 bytes, else 2
+template <class T, int dh>
+__host__ __device__ constexpr int stages() {
+  return dh * static_cast<int>(sizeof(T)) <= 256 ? 4 : 2;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -71,51 +95,189 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 16 bytes of T at p (shared memory) as float32: 4 floats or 8 bfloat16s.
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// N consecutive elements at p (N * sizeof(T)-byte aligned) as float32, in
+// one vector load where N * sizeof(T) <= 16.
+template <int N>
+__device__ __forceinline__ void load_slice(const float* p, float* out) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  } else {
+    out[0] = p[0];
   }
 }
 
+template <int N>
+__device__ __forceinline__ void load_slice(const __nv_bfloat16* p, float* out) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(p + i);
+      const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        out[i + 2 * j] = f.x; out[i + 2 * j + 1] = f.y;
+      }
+    }
+  } else if constexpr (N == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+    out[0] = f0.x; out[1] = f0.y; out[2] = f1.x; out[3] = f1.y;
+  } else if constexpr (N == 2) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = f.x; out[1] = f.y;
+  } else {
+    out[0] = __bfloat162float(p[0]);
+  }
+}
+
+// Transposing sum across the warp: every lane holds v[0..2W) partial values
+// of 2W positions; afterwards v[0] of lane i holds the sum over all lanes of
+// position i (2W = 32: 16 + 8 + 4 + 2 + 1 shuffles).
+template <int W>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  const bool upper = (lane & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? v[i] : v[i + W];
+    const float keep = upper ? v[i + W] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, W);
+  }
+  if constexpr (W > 1) reduce_scatter<W / 2>(v, lane);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1, with a 128-byte L2 prefetch hint
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n"
+               :: "r"(smem_u32(smem)), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
 
-// grid (nsplit, KVH, B), block 32*G threads; warp g serves query head kvh*G+g.
-// kPerLane = dh / 32 output columns a lane: column lane + 32*i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row; rows 8-15 zero) * b (16x8, col), bf16 in, float32 out
+__device__ __forceinline__ void mma_rows8(float (&d)[4], uint32_t a0, uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  const uint32_t zero = 0;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(zero), "r"(a2), "r"(zero), "r"(b0), "r"(b1));
+}
+
+// Write head's partial (m, l, acc) of this split, or its output where the
+// split is the only one.  Lane i holds acc's columns [i*kPerLane, +kPerLane).
 template <class T, int kPerLane>
-__global__ void decode_attn_split(const T* __restrict__ q, const T* __restrict__ k,
-                                  const T* __restrict__ v,
-                                  const int32_t* __restrict__ lengths,
-                                  float* __restrict__ part_m, float* __restrict__ part_l,
-                                  float* __restrict__ part_acc, int64_t smax, int kvh_count,
-                                  int group, int64_t split_len, float scale) {
+__device__ __forceinline__ void write_split(float m, float l, const float (&acc)[kPerLane],
+                                            int64_t head, int64_t split, int64_t nsplit,
+                                            float* part_m, float* part_l, float* part_acc,
+                                            T* out, int lane) {
+  constexpr int dh = 32 * kPerLane;
+  const int col = lane * kPerLane;
+  if (nsplit == 1) {
+    const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) out[head * dh + col + i] = from_f32<T>(acc[i] / den);
+    return;
+  }
+  const int64_t slot = head * nsplit + split;
+  if (lane == 0) {
+    part_m[slot] = m;
+    part_l[slot] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) part_acc[slot * dh + col + i] = acc[i];
+}
+
+// After every thread has written its partials: true in the CTA that
+// finished last among the nsplit CTAs of `counter`'s (b, kvh).
+__device__ __forceinline__ bool last_of_splits(int32_t* counter, int64_t nsplit, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == nsplit - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  return true;
+}
+
+// out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30), w_s = exp(m_s - max m),
+// over the nsplit partials of `head`, by one warp.  Split 0 always holds a
+// position, so max m is finite; empty splits (m = -inf, l = 0, acc = 0) get
+// weight 0.  The partials were written by other CTAs: read through L2.
+template <class T, int kPerLane>
+__device__ __forceinline__ void merge_splits(const float* part_m, const float* part_l,
+                                             const float* part_acc, T* out, int64_t head,
+                                             int64_t nsplit, int lane) {
+  constexpr int dh = 32 * kPerLane;
+  const int col = lane * kPerLane;
+  const float* pm = part_m + head * nsplit;
+  const float* pl = part_l + head * nsplit;
+  float mx = -INFINITY;
+  for (int64_t s = lane; s < nsplit; s += 32) mx = fmaxf(mx, __ldcg(pm + s));
+  mx = warp_max(mx);
+  float den = 0.0f;
+  for (int64_t s = lane; s < nsplit; s += 32) den += __ldcg(pl + s) * expf(__ldcg(pm + s) - mx);
+  den = fmaxf(warp_sum(den), 1e-30f);
+  float num[kPerLane];
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) num[i] = 0.0f;
+  for (int64_t s = 0; s < nsplit; ++s) {
+    const float w = expf(__ldcg(pm + s) - mx);
+    const float* pa = part_acc + (head * nsplit + s) * dh + col;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) num[i] = fmaf(__ldcg(pa + i), w, num[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) out[head * dh + col + i] = from_f32<T>(num[i] / den);
+}
+
+// grid (nsplit, KVH, B), block 32*G threads; warp g serves query head
+// kvh*G+g.  kPerLane = dh / 32 columns a lane: [lane*kPerLane, +kPerLane).
+template <class T, int kPerLane>
+__global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                   const T* __restrict__ v,
+                                   const int32_t* __restrict__ lengths,
+                                   float* __restrict__ part_m, float* __restrict__ part_l,
+                                   float* __restrict__ part_acc, int32_t* __restrict__ counters,
+                                   T* __restrict__ out, int64_t smax, int kvh_count, int group,
+                                   int64_t split_len, float scale) {
   constexpr int dh = 32 * kPerLane;
   constexpr int kVec = 16 / sizeof(T);            // elements in 16 bytes
-  constexpr int kRow = dh + kVec;                 // padded row, in elements
   constexpr int kChunks = dh / kVec;              // 16-byte chunks a row
+  constexpr int kStages = stages<T, dh>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);                 // group x dh
-  T* tiles = reinterpret_cast<T*>(qs + group * dh);               // [2][K|V][kTile][kRow]
+  T* ring = reinterpret_cast<T*>(smem_raw);       // [kStages][K|V][kTile][dh]
+  __shared__ int last_cta;
   const int64_t b = blockIdx.z;
   const int kvh = blockIdx.y;
   const int64_t split = blockIdx.x;
+  const int64_t nsplit = gridDim.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t heads = static_cast<int64_t>(kvh_count) * group;
+  const int64_t head = b * heads + static_cast<int64_t>(kvh) * group + warp;
+  const int col = lane * kPerLane;
 
   const int64_t len = lengths ? static_cast<int64_t>(lengths[b]) : smax;
   const int64_t n = len >= 1 ? (len < smax ? len : smax) : smax;
@@ -123,24 +285,24 @@ __global__ void decode_attn_split(const T* __restrict__ q, const T* __restrict__
   const int64_t end = start + split_len < n ? start + split_len : n;
   const int ntiles = end > start ? static_cast<int>((end - start + kTile - 1) / kTile) : 0;
 
-  const T* qb = q + (b * heads + static_cast<int64_t>(kvh) * group) * dh;
-  for (int i = threadIdx.x; i < group * dh; i += blockDim.x) qs[i] = to_f32(qb[i]);
+  float qv[kPerLane];
+  load_slice<kPerLane>(q + head * dh + col, qv);
   const int64_t row = static_cast<int64_t>(kvh_count) * dh;   // between positions
   const T* kb = k + (b * smax * kvh_count + kvh) * dh;
   const T* vb = v + (b * smax * kvh_count + kvh) * dh;
 
-  // stage tile `tile` into buffer `buf`: rows past `end` are left unread
+  // stage tile `tile` into ring slot `buf`: rows past `end` are left unread
   auto stage = [&](int tile, int buf) {
     const int64_t t0 = start + static_cast<int64_t>(tile) * kTile;
     const int nt = static_cast<int>(end - t0 < kTile ? end - t0 : kTile);
-    T* ks = tiles + static_cast<size_t>(buf) * 2 * kTile * kRow;
-    T* vs = ks + kTile * kRow;
+    T* ks = ring + static_cast<size_t>(buf) * 2 * kTile * dh;
+    T* vs = ks + kTile * dh;
     for (int i = threadIdx.x; i < nt * kChunks; i += blockDim.x) {
       const int r = i / kChunks;
       const int c = (i - r * kChunks) * kVec;
       const int64_t off = (t0 + r) * row + c;
-      cp_async16(ks + r * kRow + c, kb + off);
-      cp_async16(vs + r * kRow + c, vb + off);
+      cp_async16(ks + r * dh + c, kb + off);
+      cp_async16(vs + r * dh + c, vb + off);
     }
   };
 
@@ -148,34 +310,38 @@ __global__ void decode_attn_split(const T* __restrict__ q, const T* __restrict__
   float acc[kPerLane];
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
-  const float* qh = qs + warp * dh;
 
-  if (ntiles > 0) stage(0, 0);
-  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) stage(s, s);
+    cp_async_commit();       // possibly empty: keeps the group count exact
+  }
   for (int tile = 0; tile < ntiles; ++tile) {
-    if (tile + 1 < ntiles) stage(tile + 1, (tile + 1) & 1);
-    cp_async_commit();       // possibly empty: keeps wait_group 1 exact
-    cp_async_wait1();        // this tile's copies (and qs) have landed
-    __syncthreads();
+    cp_async_wait<kStages - 2>();   // this tile's copies have landed
+    __syncthreads();                // ... for every thread; slot tile-1 is free
+    const int next = tile + kStages - 1;
+    if (next < ntiles) stage(next, next % kStages);
+    cp_async_commit();
     const int64_t t0 = start + static_cast<int64_t>(tile) * kTile;
     const int nt = static_cast<int>(end - t0 < kTile ? end - t0 : kTile);
-    const T* ks = tiles + static_cast<size_t>(tile & 1) * 2 * kTile * kRow;
-    const T* vs = ks + kTile * kRow;
-    float s = -INFINITY;
-    if (lane < nt) {
-      const T* kr = ks + lane * kRow;
-      float dot = 0.0f;
-#pragma unroll 4
-      for (int c = 0; c < dh; c += kVec) {
-        float kv[kVec], qv[kVec];
-        load16(kr + c, kv);
+    const T* ks = ring + static_cast<size_t>(tile % kStages) * 2 * kTile * dh;
+    const T* vs = ks + kTile * dh;
+
+    // partial dots of this lane's columns with every position of the tile
+    // (rows past nt hold stale data: it lands only in lanes >= nt, masked)
+    float part[kTile];
 #pragma unroll
-        for (int j = 0; j < kVec; j += 4) load16(qh + c + j, qv + j);
+    for (int j = 0; j < kTile; ++j) {
+      float kv[kPerLane];
+      load_slice<kPerLane>(ks + j * dh + col, kv);
+      float d = 0.0f;
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) dot = fmaf(qv[j], kv[j], dot);
-      }
-      s = dot * scale + (t0 + lane < len ? 0.0f : kMasked);
+      for (int i = 0; i < kPerLane; ++i) d = fmaf(qv[i], kv[i], d);
+      part[j] = d;
     }
+    reduce_scatter<kTile / 2>(part, lane);
+    const float s = lane < nt ? part[0] * scale + (t0 + lane < len ? 0.0f : kMasked)
+                              : -INFINITY;
     const float m_new = fmaxf(m, warp_max(s));
     const float p = lane < nt ? expf(s - m_new) : 0.0f;
     const float alpha = expf(m - m_new);   // 0 on the first tile (m = -inf)
@@ -184,87 +350,276 @@ __global__ void decode_attn_split(const T* __restrict__ q, const T* __restrict__
     for (int i = 0; i < kPerLane; ++i) acc[i] *= alpha;
     for (int j = 0; j < nt; ++j) {
       const float pj = __shfl_sync(kFull, p, j);
-      const T* vr = vs + j * kRow + lane;
+      float vv[kPerLane];
+      load_slice<kPerLane>(vs + j * dh + col, vv);
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i) acc[i] = fmaf(pj, to_f32(vr[32 * i]), acc[i]);
+      for (int i = 0; i < kPerLane; ++i) acc[i] = fmaf(pj, vv[i], acc[i]);
     }
     m = m_new;
-    __syncthreads();         // every warp is done with this buffer
   }
 
-  const int64_t slot = (b * heads + static_cast<int64_t>(kvh) * group + warp) * gridDim.x
-                       + split;
-  if (lane == 0) {
-    part_m[slot] = m;
-    part_l[slot] = l;
+  write_split<T, kPerLane>(m, l, acc, head, split, nsplit, part_m, part_l, part_acc, out,
+                           lane);
+  if (nsplit == 1) return;
+  int32_t* counter = counters + b * kvh_count + kvh;
+  if (!last_of_splits(counter, nsplit, &last_cta)) return;
+  merge_splits<T, kPerLane>(part_m, part_l, part_acc, out, head, nsplit, lane);
+  if (threadIdx.x == 0) *counter = 0;   // ready for the next call on this stream
+}
+
+constexpr int kTcThreads = 128;      // 4 warps, each 8 positions of a tile
+constexpr int kTcStages = 2;         // ring depth of the tensor-core kernel
+
+// bf16 with G <= kG <= 8 on the tensor cores for q.K.  grid (nsplit, KVH,
+// B), block kTcThreads.  Rows are padded by 16 bytes, so the 8 rows an
+// ldmatrix reads fall in 8 bank groups.
+template <int kPerLane, int kG>
+__global__ void __launch_bounds__(kTcThreads)
+decode_attn_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ lengths,
+               float* __restrict__ part_m, float* __restrict__ part_l,
+               float* __restrict__ part_acc, int32_t* __restrict__ counters,
+               __nv_bfloat16* __restrict__ out, int64_t smax, int kvh_count, int group,
+               int64_t split_len, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int dh = 32 * kPerLane;
+  constexpr int kRowP = dh + 8;                   // padded row, in elements
+  constexpr int kChunks = dh / 8;                 // 16-byte chunks a row
+  constexpr int kStages = kTcStages;
+  constexpr int kWarps = kTcThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][K|V][kTile][kRowP]
+  __shared__ int last_cta;
+  const int64_t b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const int64_t split = blockIdx.x;
+  const int64_t nsplit = gridDim.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;                       // fragment row: head of the group
+  const int tq = lane & 3;                        // fragment column pair: positions
+  const int col = lane * kPerLane;
+  const int64_t head0 = (b * kvh_count + kvh) * group;
+
+  const int64_t len = lengths ? static_cast<int64_t>(lengths[b]) : smax;
+  const int64_t n = len >= 1 ? (len < smax ? len : smax) : smax;
+  const int64_t start = split * split_len;
+  const int64_t end = start + split_len < n ? start + split_len : n;
+  const int ntiles = end > start ? static_cast<int>((end - start + kTile - 1) / kTile) : 0;
+
+  // q as the A operand, rows = the group's heads (zero past G): a0, a2
+  uint32_t qa[dh / 16][2];
+#pragma unroll
+  for (int s = 0; s < dh / 16; ++s) {
+    qa[s][0] = qa[s][1] = 0u;
+    if (gq < group) {
+      const bf16* qr = q + (head0 + gq) * dh + 16 * s + 2 * tq;
+      qa[s][0] = *reinterpret_cast<const uint32_t*>(qr);
+      qa[s][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
+    }
+  }
+  const int64_t row = static_cast<int64_t>(kvh_count) * dh;   // between positions
+  const bf16* kb = k + (b * smax * kvh_count + kvh) * dh;
+  const bf16* vb = v + (b * smax * kvh_count + kvh) * dh;
+
+  auto stage = [&](int tile, int buf) {
+    const int64_t t0 = start + static_cast<int64_t>(tile) * kTile;
+    const int nt = static_cast<int>(end - t0 < kTile ? end - t0 : kTile);
+    bf16* ks = ring + static_cast<size_t>(buf) * 2 * kTile * kRowP;
+    bf16* vs = ks + kTile * kRowP;
+    for (int i = threadIdx.x; i < nt * kChunks; i += kTcThreads) {
+      const int r = i / kChunks;
+      const int c = (i - r * kChunks) * 8;
+      const int64_t off = (t0 + r) * row + c;
+      cp_async16(ks + r * kRowP + c, kb + off);
+      cp_async16(vs + r * kRowP + c, vb + off);
+    }
+  };
+
+  // online softmax of head gq over this warp's positions (rows 8w..8w+7 of
+  // every tile); lane i accumulates columns [col, col + kPerLane) of each head
+  float m = -INFINITY, l = 0.0f;
+  float acc[kG][kPerLane];
+#pragma unroll
+  for (int hh = 0; hh < kG; ++hh)
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) acc[hh][i] = 0.0f;
+  const int row0 = 8 * warp;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) stage(s, s);
+    cp_async_commit();
+  }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = tile + kStages - 1;
+    if (next < ntiles) stage(next, next % kStages);
+    cp_async_commit();
+    const int64_t t0 = start + static_cast<int64_t>(tile) * kTile;
+    const int nt = static_cast<int>(end - t0 < kTile ? end - t0 : kTile);
+    const int nw = nt - row0;                     // this warp's positions, if > 0
+    if (nw <= 0) continue;                        // warp-uniform
+    const bf16* ks = ring + static_cast<size_t>(tile % kStages) * 2 * kTile * kRowP;
+    const bf16* vs = ks + kTile * kRowP;
+
+    // scores: (heads x 8 positions) = q (heads x dh) . K (8 x dh)^T
+    float sacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kk = 0; kk < dh; kk += 32) {
+      uint32_t kf[4];
+      ldsm_x4(kf, ks + (row0 + (lane & 7)) * kRowP + kk + (lane >> 3) * 8);
+      mma_rows8(sacc, qa[kk / 16][0], qa[kk / 16][1], kf[0], kf[1]);
+      mma_rows8(sacc, qa[kk / 16 + 1][0], qa[kk / 16 + 1][1], kf[2], kf[3]);
+    }
+    // positions row0 + 2 tq + e of head gq; rows past nt hold stale data
+    float sc[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = row0 + 2 * tq + e;
+      sc[e] = j < nt ? sacc[e] * scale + (t0 + j < len ? 0.0f : kMasked) : -INFINITY;
+    }
+    float mt = fmaxf(sc[0], sc[1]);
+    mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 2));
+    const float m_new = fmaxf(m, mt);             // finite: position row0 is valid
+    const float p0 = expf(sc[0] - m_new);
+    const float p1 = expf(sc[1] - m_new);
+    const float alpha = expf(m - m_new);          // 0 on the warp's first tile
+    float ps = p0 + p1;
+    ps += __shfl_xor_sync(kFull, ps, 1);
+    ps += __shfl_xor_sync(kFull, ps, 2);
+    l = l * alpha + ps;
+    m = m_new;
+#pragma unroll
+    for (int hh = 0; hh < kG; ++hh) {
+      const float al = __shfl_sync(kFull, alpha, 4 * hh);
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) acc[hh][i] *= al;
+    }
+    // p.V in float32: p of (head hh, position j) lives in lane 4 hh + j / 2
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nw) {
+        float vv[kPerLane];
+        load_slice<kPerLane>(vs + (row0 + j) * kRowP + col, vv);
+#pragma unroll
+        for (int hh = 0; hh < kG; ++hh) {
+          const float pj = __shfl_sync(kFull, (j & 1) ? p1 : p0, 4 * hh + (j >> 1));
+#pragma unroll
+          for (int i = 0; i < kPerLane; ++i) acc[hh][i] = fmaf(pj, vv[i], acc[hh][i]);
+        }
+      }
+    }
+  }
+
+  // merge the warps' states through shared memory (the ring is free now)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* wm = reinterpret_cast<float*>(smem_raw);  // [kWarps][kG]
+  float* wl = wm + kWarps * kG;                    // [kWarps][kG]
+  float* wacc = wl + kWarps * kG;                  // [kWarps][kG][dh]
+  if (tq == 0 && gq < kG) {
+    wm[warp * kG + gq] = m;
+    wl[warp * kG + gq] = l;
   }
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) part_acc[slot * dh + lane + 32 * i] = acc[i];
-}
-
-// grid (B*H), block kCombineThreads: out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30)
-// with w_s = exp(m_s - max m).  Split 0 always holds a position, so max m is
-// finite; empty splits (m = -inf, l = 0, acc = 0) get weight 0.
-constexpr int kCombineThreads = 128;
-
-template <class T>
-__global__ void __launch_bounds__(kCombineThreads)
-decode_attn_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                    const float* __restrict__ part_acc, T* __restrict__ out, int nsplit,
-                    int dh) {
-  const int64_t bh = blockIdx.x;
-  const float* pm = part_m + bh * nsplit;
-  const float* pl = part_l + bh * nsplit;
-  const float* pa = part_acc + bh * nsplit * dh;
-  float mx = -INFINITY;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pm[s]);
-  float den = 0.0f;
-  for (int s = 0; s < nsplit; ++s) den += pl[s] * expf(pm[s] - mx);
-  den = fmaxf(den, 1e-30f);
-  for (int e = threadIdx.x; e < dh; e += blockDim.x) {
-    float num = 0.0f;
-    for (int s = 0; s < nsplit; ++s) num += pa[static_cast<int64_t>(s) * dh + e] * expf(pm[s] - mx);
-    out[bh * dh + e] = from_f32<T>(num / den);
+  for (int hh = 0; hh < kG; ++hh)
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) wacc[(warp * kG + hh) * dh + col + i] = acc[hh][i];
+  __syncthreads();
+  for (int hh = warp; hh < group; hh += kWarps) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * kG + hh]);
+    float den = 0.0f;
+    float num[kPerLane];
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) num[i] = 0.0f;
+    if (mx != -INFINITY) {                         // else the split is empty
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float e = expf(wm[w * kG + hh] - mx);
+        den = fmaf(wl[w * kG + hh], e, den);
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i)
+          num[i] = fmaf(wacc[(w * kG + hh) * dh + col + i], e, num[i]);
+      }
+    }
+    write_split<bf16, kPerLane>(mx, den, num, head0 + hh, split, nsplit, part_m, part_l,
+                                part_acc, out, lane);
   }
+  if (nsplit == 1) return;
+  int32_t* counter = counters + b * kvh_count + kvh;
+  if (!last_of_splits(counter, nsplit, &last_cta)) return;
+  for (int hh = warp; hh < group; hh += kWarps)
+    merge_splits<bf16, kPerLane>(part_m, part_l, part_acc, out, head0 + hh, nsplit, lane);
+  if (threadIdx.x == 0) *counter = 0;   // ready for the next call on this stream
 }
 
-template <class T, int kPerLane>
+template <class T, int kPerLane, int kG>
 cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* lengths,
-                   float* pm, float* pl, float* pa, void* out, int64_t B, int64_t smax,
-                   int64_t kvh, int64_t group, int64_t split_len, float scale,
+                   float* pm, float* pl, float* pa, int32_t* counters, void* out, int64_t B,
+                   int64_t smax, int64_t kvh, int64_t group, int64_t split_len, float scale,
                    cudaStream_t stream) {
   constexpr int dh = 32 * kPerLane;
-  constexpr int kRow = dh + 16 / static_cast<int>(sizeof(T));
   const int64_t nsplit = (smax + split_len - 1) / split_len;
-  const size_t smem = group * dh * sizeof(float) + 2 * 2 * kTile * kRow * sizeof(T);
-  auto split_kernel = decode_attn_split<T, kPerLane>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
   const dim3 grid(static_cast<unsigned>(nsplit), static_cast<unsigned>(kvh),
                   static_cast<unsigned>(B));
-  split_kernel<<<grid, static_cast<unsigned>(32 * group), smem, stream>>>(
+  size_t smem;
+  unsigned threads;
+  void (*kernel)(const T*, const T*, const T*, const int32_t*, float*, float*, float*,
+                 int32_t*, T*, int64_t, int, int, int64_t, float);
+  if constexpr (kG > 0) {          // bf16, G <= kG: q.K on the tensor cores
+    const size_t ring = static_cast<size_t>(kTcStages) * 2 * kTile * (dh + 8) * sizeof(T);
+    const size_t merge = sizeof(float) * (2 * 4 * kG + 4 * kG * dh);
+    smem = ring > merge ? ring : merge;
+    threads = kTcThreads;
+    kernel = decode_attn_tc<kPerLane, kG>;
+  } else {                         // one warp per head on the CUDA cores
+    smem = static_cast<size_t>(stages<T, dh>()) * 2 * kTile * dh * sizeof(T);
+    threads = static_cast<unsigned>(32 * group);
+    kernel = decode_attn_kernel<T, kPerLane>;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      pm, pl, pa, smax, static_cast<int>(kvh), static_cast<int>(group), split_len, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_attn_combine<T><<<static_cast<unsigned>(B * kvh * group), kCombineThreads, 0, stream>>>(
-      pm, pl, pa, static_cast<T*>(out), static_cast<int>(nsplit), dh);
+      pm, pl, pa, counters, static_cast<T*>(out), smax, static_cast<int>(kvh),
+      static_cast<int>(group), split_len, scale);
   return cudaGetLastError();
+}
+
+// bf16 with G <= 8 goes to the tensor-core kernel (kG = G rounded up to a
+// power of two), everything else to the CUDA-core kernel (kG = 0)
+template <class T, int kPerLane>
+cudaError_t launch_any(const void* q, const void* k, const void* v, const int32_t* lengths,
+                       float* pm, float* pl, float* pa, int32_t* cnt, void* out, int64_t B,
+                       int64_t smax, int64_t kvh, int64_t group, int64_t split_len,
+                       float scale, cudaStream_t s) {
+  if constexpr (sizeof(T) == 2) {
+    if (group <= 1) return launch<T, kPerLane, 1>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    if (group <= 2) return launch<T, kPerLane, 2>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    if (group <= 4) return launch<T, kPerLane, 4>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    if (group <= 8) return launch<T, kPerLane, 8>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+  }
+  return launch<T, kPerLane, 0>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
 }
 
 template <class T>
 cudaError_t dispatch(int64_t dh, const void* q, const void* k, const void* v,
-                     const int32_t* lengths, float* pm, float* pl, float* pa, void* out,
-                     int64_t B, int64_t smax, int64_t kvh, int64_t group, int64_t split_len,
-                     float scale, cudaStream_t s) {
+                     const int32_t* lengths, float* pm, float* pl, float* pa, int32_t* cnt,
+                     void* out, int64_t B, int64_t smax, int64_t kvh, int64_t group,
+                     int64_t split_len, float scale, cudaStream_t s) {
   switch (dh) {
-    case 32: return launch<T, 1>(q, k, v, lengths, pm, pl, pa, out, B, smax, kvh, group, split_len, scale, s);
-    case 64: return launch<T, 2>(q, k, v, lengths, pm, pl, pa, out, B, smax, kvh, group, split_len, scale, s);
-    case 128: return launch<T, 4>(q, k, v, lengths, pm, pl, pa, out, B, smax, kvh, group, split_len, scale, s);
-    case 256: return launch<T, 8>(q, k, v, lengths, pm, pl, pa, out, B, smax, kvh, group, split_len, scale, s);
+    case 32: return launch_any<T, 1>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    case 64: return launch_any<T, 2>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    case 128: return launch_any<T, 4>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    case 256: return launch_any<T, 8>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -276,15 +631,16 @@ extern "C" {
 // dtype 0: float32, 1: bfloat16 (q, k, v and out alike).  q (B, KVH*G, dh),
 // k/v (B, smax, KVH, dh), lengths (B,) int32 or null (all of smax), out like
 // q; scratch part_m/part_l (B, KVH*G, nsplit) and part_acc (B, KVH*G, nsplit,
-// dh) float32 with nsplit = ceil(smax / split_len); split_len a multiple of
-// 32.  All contiguous on the current device, k and v 16-byte aligned;
-// launched on `stream`.  dh is 32, 64, 128 or 256.  The caller checks
-// shapes (G <= 32, B and KVH <= 65535).  Returns
-// cudaGetLastError() after the launches (0 on success).
+// dh) float32 with nsplit = ceil(smax / split_len); counters (B, KVH) int32,
+// zero before the call and left zero after it; split_len a multiple of 32.
+// All contiguous on the current device, k and v 16-byte aligned; launched on
+// `stream`.  dh is 32, 64, 128 or 256.  The caller checks shapes (G <= 32,
+// B and KVH <= 65535).  Returns cudaGetLastError() after the launch (0 on
+// success).
 int decode_attn(int dtype, const void* q, const void* k, const void* v, const void* lengths,
-                void* part_m, void* part_l, void* part_acc, void* out, int64_t B,
-                int64_t smax, int64_t kvh, int64_t group, int64_t dh, int64_t split_len,
-                float scale, void* stream) {
+                void* part_m, void* part_l, void* part_acc, void* counters, void* out,
+                int64_t B, int64_t smax, int64_t kvh, int64_t group, int64_t dh,
+                int64_t split_len, float scale, void* stream) {
   if (B == 0 || kvh == 0) return cudaSuccess;
   if (smax <= 0 || group < 1 || group > 32 || split_len <= 0 || split_len % kTile) {
     return cudaErrorInvalidValue;
@@ -293,10 +649,11 @@ int decode_attn(int dtype, const void* q, const void* k, const void* v, const vo
   auto* pm = static_cast<float*>(part_m);
   auto* pl = static_cast<float*>(part_l);
   auto* pa = static_cast<float*>(part_acc);
+  auto* cnt = static_cast<int32_t*>(counters);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch<float>(dh, q, k, v, len, pm, pl, pa, out, B, smax, kvh, group, split_len, scale, s);
-    case 1: return dispatch<__nv_bfloat16>(dh, q, k, v, len, pm, pl, pa, out, B, smax, kvh, group, split_len, scale, s);
+    case 0: return dispatch<float>(dh, q, k, v, len, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    case 1: return dispatch<__nv_bfloat16>(dh, q, k, v, len, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

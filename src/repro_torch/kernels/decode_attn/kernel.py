@@ -9,15 +9,19 @@ Layouts: q ``(B, H, dh)``; k, v ``(B, Smax, KVH, dh)`` (one layer of the
 decode cache); lengths ``(B,)`` valid KV prefix, or None for all of Smax.
 float32 or bfloat16, all three alike; the output has q's dtype.
 
-The kernel (``csrc/decode_attn.cu``) splits S over CTAs and combines the
-partial softmax states in a second small kernel; the scratch for those
-partials is allocated here.  ``lengths`` stays on the device: the wrapper
-never reads it on the host, so a decode step makes no host sync.
+The kernel (``csrc/decode_attn.cu``; bf16 with G <= 8 runs q·Kᵀ on the
+tensor cores) splits S over CTAs and the last CTA of each (sequence, KV
+head) merges the partial softmax states, in one launch.  ``plan_splits``
+sizes the splits from Smax and the card's SM count, so the grid is about
+one wave of ``TARGET_CTAS_PER_SM`` CTAs an SM; the scratch for the
+partials and the per-(sequence, KV head) tickets are allocated here.
+``lengths`` stays on the device: the wrapper never reads it on the host,
+so a decode step makes no host sync.
 
 A tensor on the CPU goes to the plain version (``ref.decode_attention_ref``);
 a tensor on a CUDA device launches the kernel or raises.  Nothing falls
-back.  ``decode_attention.launches`` counts kernel launches (one per call,
-the split pass and its combine together), never plain calls.
+back.  ``decode_attention.launches`` counts kernel launches (one per call),
+never plain calls.
 """
 from __future__ import annotations
 
@@ -32,13 +36,30 @@ from .ref import decode_attention_ref
 
 SOURCE = pathlib.Path(__file__).with_name("csrc") / "decode_attn.cu"
 
-#: KV positions per CTA of the split pass (a multiple of its 32-row tile)
-SPLIT = 128
+#: KV positions a tile of the kernel; every split is a multiple of it
+TILE = 32
 
 #: the kernel keeps dh/32 accumulators a lane and one warp per query head
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 32
+MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_YZ = 65535
+
+#: per SM of an H100 (sm_90): shared memory, the share the runtime keeps
+#: per CTA, and threads
+SM_SHARED_BYTES = 228 * 1024
+CTA_RESERVED_BYTES = 1024
+SM_MAX_THREADS = 2048
+
+#: the tensor-core kernel (bf16, G <= 8): 4 warps of 8 positions a tile,
+#: a ring 2 tiles deep
+TC_MAX_GROUP = 8
+TC_THREADS = 128
+TC_STAGES = 2
+
+#: CTAs an SM the split plan aims at: on an H100 3 beat filling every slot
+#: (tools/sweep_decode_attn.py; PERF.md)
+TARGET_CTAS_PER_SM = 3
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,12 +69,91 @@ def build() -> Built:
     """Compile (at first use) and load the kernel library."""
     built = load_library(SOURCE)
     fn = built.lib.decode_attn
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 \
         + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     built.lib.decode_attn_error_string.argtypes = [ctypes.c_int]
     built.lib.decode_attn_error_string.restype = ctypes.c_char_p
     return built
+
+
+def tensor_cores(itemsize: int, group: int) -> bool:
+    """Whether the launch takes the tensor-core kernel: bf16, G <= 8."""
+    return itemsize == 2 and group <= TC_MAX_GROUP
+
+
+def smem_bytes(dh: int, itemsize: int, group: int) -> int:
+    """Dynamic shared memory of a CTA (``launch()`` in the source): the
+    ring of K and V tiles, in the CUDA-core kernel 4 stages deep where a
+    row is at most 256 bytes, else 2 (``stages()``); in the tensor-core
+    kernel ``TC_STAGES`` deep with rows padded by 16 bytes, and at least
+    what its end-of-CTA merge of the 4 warps' states reuses."""
+    row = dh * itemsize
+    if not tensor_cores(itemsize, group):
+        return (4 if row <= 256 else 2) * 2 * TILE * row
+    kg = 1 << (group - 1).bit_length()
+    return max(TC_STAGES * 2 * TILE * (row + 16),
+               4 * (2 * 4 * kg + 4 * kg * dh))
+
+
+def cta_threads(itemsize: int, group: int) -> int:
+    return TC_THREADS if tensor_cores(itemsize, group) else 32 * group
+
+
+def resident_ctas(num_sms: int, dh: int, itemsize: int, group: int) -> int:
+    """CTAs the split plan fills: ``TARGET_CTAS_PER_SM`` an SM, or fewer
+    where shared memory or threads allow fewer."""
+    per_sm = min(SM_SHARED_BYTES // (smem_bytes(dh, itemsize, group) + 16
+                                     + CTA_RESERVED_BYTES),
+                 SM_MAX_THREADS // cta_threads(itemsize, group),
+                 TARGET_CTAS_PER_SM)
+    return num_sms * max(per_sm, 1)
+
+
+def plan_splits(smax: int, rows: int, slots: int) -> tuple[int, int]:
+    """(split_len, nsplit) for ``rows`` = B·KVH sequences × KV heads over
+    ``smax`` positions on a card that holds ``slots`` CTAs at once.
+
+    Each (b, kvh) gets ``max(1, slots // rows)`` splits or fewer, each a
+    whole number of 32-position tiles, so the grid of ``rows · nsplit``
+    CTAs is at most one wave (or ``rows`` CTAs where that exceeds it)."""
+    if smax < 1 or rows < 1 or slots < 1:
+        raise ValueError(f"need smax, rows, slots >= 1; got {smax}, {rows}, "
+                         f"{slots}")
+    want = max(1, slots // rows)
+    tiles = -(-smax // TILE)
+    split_len = -(-tiles // want) * TILE
+    return split_len, -(-smax // split_len)
+
+
+@functools.cache
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan(q: torch.Tensor, k: torch.Tensor) -> dict:
+    """The launch ``decode_attention`` makes for these q and k on their
+    CUDA device: split length, splits, CTAs and the card's CTA slots."""
+    B, H, dh = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    slots = resident_ctas(_num_sms(q.device), dh, q.element_size(), H // KVH)
+    split_len, nsplit = plan_splits(S, B * KVH, slots)
+    return {"split_len": split_len, "nsplit": nsplit,
+            "ctas": B * KVH * nsplit, "slots": slots}
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 tickets, one per (b, kvh), kept per device and stream:
+    the kernel's last CTA of each (b, kvh) sets its ticket back to 0, so
+    calls in order on one stream reuse them without a memset."""
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    return buf
 
 
 def _check(q, k, v, lengths) -> None:
@@ -103,9 +203,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("k and v must be contiguous and 16-byte aligned")
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     if lengths is not None:
         lengths = lengths.to(torch.int32).contiguous()
-    nsplit = -(-S // SPLIT)
+    launch = plan(q, k)
+    split_len, nsplit = launch["split_len"], launch["nsplit"]
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((B, H, nsplit), **f32)
     part_l = torch.empty((B, H, nsplit), **f32)
@@ -114,11 +217,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build().lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(q.device, stream, B * KVH)
         err = lib.decode_attn(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lengths is None else lengths.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            out.data_ptr(), B, S, KVH, G, dh, SPLIT, 1.0 / dh ** 0.5, stream)
+            counters.data_ptr(), out.data_ptr(), B, S, KVH, G, dh, split_len,
+            1.0 / dh ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attn kernel launch failed: "
                            f"{lib.decode_attn_error_string(err).decode()}")

@@ -8,7 +8,12 @@ reads b/c of group ``h // (nh // G)`` without repeating them.  T need not be
 a multiple of ``chunk``: the kernel masks the last chunk.
 
 x, b, c are float32 or bfloat16 (alike), a is float32; y has x's dtype and
-the final state (``return_state``) is float32.
+the final state (``return_state``) is float32.  The bfloat16 instance runs
+its products on the tensor cores in sub-chunks of ``SUB_CHUNK`` steps
+whatever ``chunk`` is (the chunked form computes one recurrence for every
+chunk length; ``chunk`` moves only the rounding) and takes dh <= 64 and
+ds <= 128, multiples of 8; the float32 instance walks ``chunk``-step
+chunks on the CUDA cores (``csrc/ssd.cu``).
 
 A tensor on the CPU goes to the plain version (``ref.ssd_chunked_ref``); a
 tensor on a CUDA device launches the kernel or raises.  Nothing falls back.
@@ -28,6 +33,22 @@ from .ref import ssd_chunked_ref
 SOURCE = pathlib.Path(__file__).with_name("csrc") / "ssd.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: steps a sub-chunk of the bfloat16 (tensor-core) instance
+SUB_CHUNK = 32
+#: the largest dh and ds of the bfloat16 instance
+TC_MAX_DH, TC_MAX_DS = 64, 128
+
+
+def tc_smem_bytes(dh: int, ds: int) -> int:
+    """Dynamic shared memory of a bfloat16-instance CTA (``tc_smem_bytes``
+    in the source): two buffers of x, b, c (bf16) and a (float32) for a
+    sub-chunk, and h as a bf16 hi/lo pair, with dh and ds padded to the
+    tile widths the kernel is built for."""
+    dhp = 32 if dh <= 32 else 64
+    dsp = 32 if ds <= 32 else 64 if ds <= 64 else 128
+    buffer = SUB_CHUNK * dhp * 2 + 2 * SUB_CHUNK * dsp * 2 + SUB_CHUNK * 4
+    return 2 * buffer + 2 * dsp * dhp * 2
 
 
 @functools.cache
@@ -76,6 +97,13 @@ def ssd_chunked(x, b, c, a, *, chunk: int = 128, return_state: bool = False):
     x, b, c, a = (t.contiguous() for t in (x, b, c, a))
     B, T, nh, dh = x.shape
     G, ds = b.shape[2], b.shape[3]
+    if x.dtype == torch.bfloat16:
+        if dh % 8 or ds % 8 or dh > TC_MAX_DH or ds > TC_MAX_DS:
+            raise ValueError(f"ssd bfloat16 kernel takes dh <= {TC_MAX_DH} and "
+                             f"ds <= {TC_MAX_DS}, multiples of 8; got dh={dh},"
+                             f" ds={ds}")
+        # 16-byte copies: a view that starts off a 16-byte boundary is copied
+        x, b, c = (t.clone() if t.data_ptr() % 16 else t for t in (x, b, c))
     L = min(chunk, T)
     y = torch.empty_like(x)
     h_last = torch.empty((B, nh, ds, dh), dtype=torch.float32,

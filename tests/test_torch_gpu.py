@@ -28,6 +28,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.kernels import bsr_spmv as port_k
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_ref)
+from repro_torch.kernels.decode_attn import kernel as attn_k
 from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
 from repro_torch.models import forward, init_params
 from repro_torch.serve import generate
@@ -181,6 +182,88 @@ def test_ssd_matches_plain(cuda, dtype, B, T, nh, G, dh, ds, chunk, decay):
         flat = (x[:, :, 0], b[:, :, 0], c[:, :, 0], a[:, :, 0])
         torch.testing.assert_close(y[:, :, 0].float(),
                                    ssd_ref(*flat).float(), **tol)
+
+
+def decode_edge_lengths(S, split_len, B):
+    """Lengths on the edges of the kernel's splits and tiles, cycled over
+    B rows: 0, 1, a tile, one past it, a split, one short of and one past
+    it, all of S (each clipped to S)."""
+    edges = [0, 1, attn_k.TILE, attn_k.TILE + 1, split_len - 1, split_len,
+             split_len + 1, S]
+    return [min(edges[i % len(edges)], S) for i in range(B)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,dh,S", [
+    (8, 8, 8, 64, 1),         # Smax 1, G = 1
+    (8, 32, 4, 128, 31),      # Smax below a tile, G = 8
+    (8, 16, 2, 128, 33),      # one past a tile
+    (64, 32, 8, 128, 100),    # B*KVH = 512 rows: exactly one split
+    (8, 4, 1, 128, 5000),     # 8 rows: many splits
+    (8, 32, 8, 128, 2113),    # the serving shape
+    (4, 40, 8, 128, 500),     # G = 5: heads padded to 8 on the tensor cores
+    (4, 32, 2, 64, 700),      # G = 16: bf16 on the CUDA-core kernel
+])
+def test_decode_attn_split_edges(cuda, dtype, B, H, KVH, dh, S):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((B, H, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, S, KVH, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, S, KVH, dh), generator=gen, device=cuda).to(dtype)
+    launch = attn_k.plan(q, k)
+    assert launch["ctas"] <= max(launch["slots"], B * KVH)
+    if B * KVH >= launch["slots"]:
+        assert launch["nsplit"] == 1
+    lens = torch.tensor(decode_edge_lengths(S, launch["split_len"], B),
+                        dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, lens)
+    again = decode_attention(q, k, v, lens)     # the tickets were reset
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(got, again)
+    tol = TOL[dtype]["decode"]
+    torch.testing.assert_close(got.float(),
+                               decode_attention_ref(q, k, v, lens).float(),
+                               **tol)
+    # lengths == 0 (row 0): the uniform mean of V over all S
+    torch.testing.assert_close(
+        got[0].float(), v[0].float().mean(0).repeat_interleave(
+            H // KVH, dim=0), **tol)
+    for counters in attn_k._COUNTERS.values():
+        assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,nh,G,dh,ds,chunk,decay", [
+    (2, 1, 4, 1, 64, 128, 128, None),     # T = 1
+    (2, 50, 4, 1, 64, 128, 128, None),    # T < chunk
+    (1, 129, 4, 1, 64, 128, 128, None),   # T = chunk + 1
+    (1, 300, 2, 1, 64, 128, 64, None),    # chunk 64
+    (1, 600, 2, 1, 32, 64, 256, None),    # chunk 256
+    (2, 200, 8, 2, 64, 128, 128, None),   # G = 2, nh = 8
+    (1, 200, 4, 1, 64, 128, 128, 0.0),    # a = 0: no decay
+    (1, 200, 4, 1, 64, 128, 128, 5.0),    # a = -5
+])
+def test_ssd_chunk_edges(cuda, dtype, B, T, nh, G, dh, ds, chunk, decay):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((B, T, nh, dh), generator=gen, device=cuda).to(dtype)
+    b = (0.5 * torch.randn((B, T, G, ds), generator=gen,
+                           device=cuda)).to(dtype)
+    c = (0.5 * torch.randn((B, T, G, ds), generator=gen,
+                           device=cuda)).to(dtype)
+    if decay is None:
+        a = -torch.nn.functional.softplus(
+            torch.randn((B, T, nh), generator=gen, device=cuda))
+    else:
+        a = torch.full((B, T, nh), -decay, device=cuda)
+    before = ssd_chunked.launches
+    y, h = ssd_chunked(x, b, c, a, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_chunked.launches == before + 1
+    y_ref, h_ref = ssd_chunked_ref(x, b, c, a, chunk=chunk,
+                                   return_state=True)
+    torch.testing.assert_close(y.float(), y_ref.float(), **TOL[dtype]["ssd"])
+    torch.testing.assert_close(h, h_ref, **STATE_TOL)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
