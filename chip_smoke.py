@@ -22,9 +22,12 @@ the script exit non-zero after it has printed what it measured):
    graph path's layout, and the superstep of both backends; then free the
    graph path's 37 GB of blocks;
 5. hold ``decode_attn`` and ``ssd`` against their plain versions in
-   float32 and bfloat16, on edge inputs: ragged lengths below a Smax that
-   is no multiple of any block, a ``lengths == 0`` row, T no multiple of
-   the chunk, strong decay (a = -5), and the final SSD state;
+   float32 and bfloat16, on edge inputs: ``decode_attn`` at the serving
+   batch and widths, so with the main path's split plan, ragged lengths on
+   the split edges below a Smax that is no multiple of any block, a
+   ``lengths == 0`` row, and the newest key left out, which the hold must
+   reject; ``ssd`` with T no multiple of the chunk, strong decay
+   (a = -5), and the final SSD state;
 6. serve qwen3-4b at its published config (bf16, 36 layers, random
    weights from a seeded generator on the card) through
    ``serve.generate``: 8 prompts of 2048 random tokens, 64 new tokens,
@@ -44,12 +47,11 @@ the script exit non-zero after it has printed what it measured):
 8. time ``decode_attn`` at the serving shape and at S = 32768, and
    ``ssd`` at the serving shape, beside their plain versions, a library
    call where one exists, and their bounds.  These times are device time
-   from torch.profiler (``ms``, and by kernel with launches per call);
-   beside them CUDA events around each call (``call_ms``) and around
-   back-to-back calls (``batched_ms``), and the host's time to issue a
-   call (``host_ms``), which tell launch overhead from device time;
-   ``decode_attn`` also reports its split plan and CTA count.
-   ``bsr_spmv``'s 14 ms launches are timed with CUDA events.
+   from torch.profiler (``ms``, the kernel's mean event, and by kernel
+   with launches per call); the grid and block of the timed launches are
+   read from the profiler's trace, and the CTAs an SM holds from the CUDA
+   runtime's occupancy query for the kernel's own launch.  ``bsr_spmv``'s
+   14 ms launches are timed with CUDA events.
 
 It prints JSON lines (sizes, memory, times, checks, the kernel table
 line), the ``nvidia-smi`` name and power limit, and last
@@ -77,8 +79,6 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12            # float32 outside the tensor cores
 BF16_TC_FLOPS = 989e12       # bf16 on the tensor cores, dense
 
-#: per SM (sm_90): shared memory
-SM_SHARED_BYTES = 228 * 1024
 #: the ssd bfloat16 kernel: bf16 passes of each product with a float32
 #: operand (its hi and lo parts)
 SSD_SPLIT_PASSES = 2
@@ -157,19 +157,17 @@ def is_device_event(e) -> bool:
     return e.device_type == torch.autograd.DeviceType.CUDA
 
 
-def profile_calls(fn, reps: int, warmup: bool = True) -> list:
-    """Device events by kernel (torch.profiler ``key_averages``) of
-    ``reps`` calls of ``fn()``.  The first launches after the profiler
-    starts can go unrecorded, so with ``warmup`` a few spin kernels
-    (``torch.cuda._sleep``) run before and after the calls, and are left
-    out of the events."""
+def profile_calls(fn, reps: int):
+    """torch.profiler over ``reps`` calls of ``fn()``.  The first launches
+    after the profiler starts can go unrecorded, so a few spin kernels
+    (``torch.cuda._sleep``) run before and after the calls; leave them out
+    with ``device_events``."""
     from torch.profiler import ProfilerActivity, profile
 
     def spin():
-        if warmup:
-            for _ in range(8):
-                torch.cuda._sleep(10_000)
-            torch.cuda.synchronize()
+        for _ in range(8):
+            torch.cuda._sleep(10_000)
+        torch.cuda.synchronize()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -179,11 +177,16 @@ def profile_calls(fn, reps: int, warmup: bool = True) -> list:
             fn()
         torch.cuda.synchronize()
         spin()
-    events = [e for e in prof.key_averages() if is_device_event(e)
-              and "spin_kernel" not in e.key]
-    check(sum(e.self_device_time_total for e in events) > 0,
+    check(sum(e.self_device_time_total for e in device_events(prof)) > 0,
           "the profiler recorded no device time")
-    return events
+    return prof
+
+
+def device_events(prof) -> list:
+    """Device events by kernel (``key_averages``), the spin kernels left
+    out."""
+    return [e for e in prof.key_averages() if is_device_event(e)
+            and "spin_kernel" not in e.key]
 
 
 def device_ms(fn, reps: int) -> float:
@@ -191,59 +194,70 @@ def device_ms(fn, reps: int) -> float:
     copies it ran, as torch.profiler records them over ``reps`` calls.
     CUDA events around a call would also count the host's launch
     overhead, which can exceed a short kernel's own time."""
-    events = profile_calls(fn, reps)
+    events = device_events(profile_calls(fn, reps))
     return sum(e.self_device_time_total for e in events) / reps / 1e3
 
 
-def timing(fn, reps: int, wrapper) -> dict:
-    """Where a call's time goes for a kernel's wrapper ``fn()``, which
-    launches its kernel once a call (``wrapper.launches`` counts them):
-    ``ms``, the kernel's device time a launch (the mean of its profiler
-    events); ``profiler_ms``, all device time the profiler recorded per
-    call, and ``kernels``, its events a call and ms an event by name;
-    ``call_ms``, CUDA events around each call with a synchronize after it
-    (median), which also count the host's time from the start event to
-    the launch; ``batched_ms``, CUDA events around ``reps`` calls issued
-    back to back; ``host_ms``, the host's time to issue one call
-    (perf_counter, no synchronize inside the window).  The ``_without_
-    warmup`` readings repeat the profile without the spin kernels: the
-    events it records a call, and its device time a call."""
+#: kernel launch attributes of the profiler's trace (CUPTI's records)
+TRACE_ARGS = ("grid", "block", "registers per thread", "shared memory",
+              "est. achieved occupancy %")
+
+
+def traced_launches(prof, key: str) -> dict:
+    """The launches of device kernels whose name holds ``key`` in a
+    profile, as its trace records them: how many, and the attributes of
+    ``TRACE_ARGS`` they share (an attribute that differs between launches
+    fails a check; one the trace lacks is left out)."""
+    path = ROOT / "build" / "chip_smoke_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    path.unlink()
+    launches = [e.get("args", {}) for e in trace.get("traceEvents", [])
+                if e.get("cat") == "kernel" and key in e.get("name", "")]
+    out = {"traced": len(launches)}
+    for arg in TRACE_ARGS:
+        values = {json.dumps(a[arg]) for a in launches if arg in a}
+        check(len(values) <= 1, f"{key} launches differ in {arg}: {values}")
+        if len(values) == 1:
+            out[arg] = json.loads(values.pop())
+    if "grid" in out:
+        out["ctas"] = int(np.prod(out["grid"]))
+    return out
+
+
+def timing(fn, reps: int, wrapper, key: str) -> dict:
+    """Device time of a kernel's wrapper ``fn()``, which launches its
+    kernel once a call (``wrapper.launches`` counts them), over ``reps``
+    calls: ``ms``, the kernel's device time a launch (the mean of its
+    profiler events, whose name holds ``key``); ``profiler_ms``, all
+    device time a call; ``kernels``, events a call and ms an event by
+    name; ``launch``, the timed launches' grid and block from the trace."""
     before = wrapper.launches
-    events = profile_calls(fn, reps)
+    prof = profile_calls(fn, reps)
     check(wrapper.launches - before == reps + 1,
           f"{wrapper.__name__} launched {wrapper.launches - before} times "
           f"for {reps + 1} calls")
-    unpadded = profile_calls(fn, reps, warmup=False)
+    events = device_events(prof)
     kernels = {e.key[:80]: {"events_per_call": e.count / reps,
                             "ms_per_event": e.self_device_time_total
                             / max(e.count, 1) / 1e3} for e in events}
-    mine = [e for e in events if "decode_attn" in e.key
-            or "ssd_scan" in e.key]
-    check(len(mine) == 1, f"expected one kernel in the profile, got "
+    mine = [e for e in events if key in e.key]
+    check(len(mine) == 1, f"expected one {key} kernel in the profile, got "
           f"{list(kernels)}")
     ms = (mine[0].self_device_time_total / max(mine[0].count, 1) / 1e3
           if mine else float("nan"))
-    call_ms = median_ms(fn, reps)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    host_s = time.perf_counter() - t0
-    end.synchronize()
     return {"ms": ms, "profiler_ms": sum(e.self_device_time_total
                                          for e in events) / reps / 1e3,
-            "kernels": kernels,
-            "events_per_call_without_warmup": sum(
-                e.count for e in unpadded) / reps,
-            "profiler_ms_without_warmup": sum(
-                e.self_device_time_total for e in unpadded) / reps / 1e3,
-            "call_ms": call_ms,
-            "batched_ms": start.elapsed_time(end) / reps,
-            "host_ms": host_s / reps * 1e3}
+            "kernels": kernels, "launch": traced_launches(prof, key)}
+
+
+def exceeds(got, want, tol) -> float:
+    """The largest ``|got - want| / (atol + rtol·|want|)``: above 1 where
+    ``close`` would fail."""
+    err = (got.float() - want.float()).abs()
+    return float((err / (tol["atol"] + tol["rtol"] * want.float().abs()))
+                 .max())
 
 
 def max_err(got, want) -> float:
@@ -444,16 +458,19 @@ def ssd_inputs(gen, B, T, nh, G, dh, ds, dtype, decay=None):
 def hold_lm_kernels(gen) -> dict:
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref)
+    from repro_torch.kernels.decode_attn.kernel import plan as attn_plan
     from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        # serving width, Smax = 2113 (prompt + new + 1): no multiple of the
-        # 32-row tile or of the planned split; ragged lengths and a 0
-        B, H, KVH, dh, S = 4, 32, 8, 128, PROMPT + NEW + 1
+        # the serving batch and widths, Smax = 2113 (prompt + new + 1): no
+        # multiple of the 32-row tile or of the planned split; lengths on
+        # the split's edges, ragged, and a 0
+        B, H, KVH, dh, S = BATCH, 32, 8, 128, PROMPT + NEW + 1
         q, k, v = decode_inputs(gen, B, H, KVH, dh, S, dtype)
-        lens = torch.tensor([S, 0, 1000, 1], dtype=torch.int32,
-                            device="cuda")
+        split = attn_plan(q, k)["split_len"]
+        lens = torch.tensor([S, 0, 1000, 1, split - 1, split, split + 1,
+                             S - 1], dtype=torch.int32, device="cuda")
         got = decode_attention(q, k, v, lens)
         want = decode_attention_ref(q, k, v, lens)
         tol = TOL[dtype]["decode"]
@@ -461,6 +478,14 @@ def hold_lm_kernels(gen) -> dict:
                                             f"decode_attn {name}")
         uniform = v[1].float().mean(0).repeat_interleave(H // KVH, dim=0)
         close(got[1], uniform, tol, f"decode_attn {name} lengths == 0")
+        # the newest key left out, on the rows that keep a key: the hold
+        # must reject it
+        kept = lens >= 2
+        wrong = exceeds(decode_attention(q, k, v, lens - 1)[kept],
+                        want[kept], tol)
+        errs[f"decode_attn_{name}_missing_newest_excess"] = wrong
+        check(wrong > 1, f"decode_attn {name}: the hold passes the newest "
+              f"key left out ({wrong} of its limit)")
         # ssd at the mamba2 width, T = 300 (no multiple of 128), with the
         # final state; then strong decay
         for T, decay in ((300, None), (1000, 5.0)):
@@ -745,16 +770,15 @@ def time_decode_attn(gen, S: int, lengths: torch.Tensor) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref)
-    from repro_torch.kernels.decode_attn.kernel import plan as attn_plan
+    from repro_torch.kernels.decode_attn.kernel import occupancy
     B, H, KVH, dh = BATCH, 32, 8, 128
     q, k, v = decode_inputs(gen, B, H, KVH, dh, S, torch.bfloat16)
     got = decode_attention(q, k, v, lengths)
     want = decode_attention_ref(q, k, v, lengths)
     err = close(got, want, TOL[torch.bfloat16]["decode"],
                 f"decode_attn at S={S}")
-    launch = attn_plan(q, k)
     times = timing(lambda: decode_attention(q, k, v, lengths), 50,
-                   decode_attention)
+                   decode_attention, "decode_attn")
     ms = times["ms"]
     plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, lengths), 5)
     # yardstick, never called by the port: SDPA over the cache's layout
@@ -778,7 +802,9 @@ def time_decode_attn(gen, S: int, lengths: torch.Tensor) -> dict:
     qk_rate = BF16_TC_FLOPS if k.dtype == torch.bfloat16 else F32_FLOPS
     ops_ms = (qk_flops / qk_rate + qk_flops / F32_FLOPS) * 1e3
     return {"S": S, "lengths": [int(n) for n in lengths.tolist()],
-            "max_abs_err": err, "ms": ms, "timing": times, "plan": launch,
+            "max_abs_err": err, "ms": ms, "timing": times,
+            "launch": times["launch"],
+            "ctas_per_sm": occupancy(q.device, q.dtype, dh, H // KVH),
             "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bound_ms, ops_ms),
             "bound_by": "bytes" if bound_ms >= ops_ms else "operations"}
@@ -799,16 +825,16 @@ def time_ssd(gen) -> dict:
     dh = 64, ds = 128, one group, chunk 128, bf16), with the final state
     as the prefill asks for it."""
     from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref
-    from repro_torch.kernels.ssd.kernel import SUB_CHUNK, tc_smem_bytes
+    from repro_torch.kernels.ssd.kernel import SUB_CHUNK, occupancy
     B, T, nh, G, dh, ds, L = BATCH, PROMPT, 48, 1, 64, 128, 128
-    ssd_smem = tc_smem_bytes(dh, ds)
     x, b, c, a = ssd_inputs(gen, B, T, nh, G, dh, ds, torch.bfloat16)
     y, h = ssd_chunked(x, b, c, a, chunk=L, return_state=True)
     y_ref, h_ref = ssd_chunked_ref(x, b, c, a, chunk=L, return_state=True)
     err = close(y, y_ref, TOL[torch.bfloat16]["ssd"], "ssd at serving shape")
     close(h, h_ref, STATE_TOL, "ssd state at serving shape")
     times = timing(lambda: ssd_chunked(x, b, c, a, chunk=L,
-                                       return_state=True), 10, ssd_chunked)
+                                       return_state=True), 10, ssd_chunked,
+                   "ssd_scan")
     ms = times["ms"]
     plain_ms = device_ms(lambda: ssd_chunked_ref(x, b, c, a, chunk=L,
                                                  return_state=True), 3)
@@ -828,8 +854,8 @@ def time_ssd(gen) -> dict:
     ref_ops_ms = (ref_cb / BF16_TC_FLOPS + ref_f32 / F32_FLOPS) * 1e3
     return {"shape": {"B": B, "T": T, "nh": nh, "G": G, "dh": dh, "ds": ds,
                       "chunk": L, "sub_chunk": SUB_CHUNK},
-            "ctas": B * nh, "smem_bytes": ssd_smem,
-            "ctas_per_sm_by_smem": SM_SHARED_BYTES // (ssd_smem + 1024),
+            "launch": times["launch"],
+            "ctas_per_sm": occupancy(x.device, x.dtype, dh, ds, L),
             "max_abs_err": err, "ms": ms, "timing": times,
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD scan",
@@ -854,6 +880,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -923,11 +950,12 @@ def main() -> int:
         "library": "F.scaled_dot_product_attention(enable_gqa=True, "
                    "boolean length mask)",
         "kernels_by_name": attn_t["timing"]["kernels"],
-        "ctas": attn_t["plan"]["ctas"], "slots": attn_t["plan"]["slots"],
-        "split_len": attn_t["plan"]["split_len"],
+        "grid": attn_t["launch"].get("grid"),
+        "ctas": attn_t["launch"].get("ctas"),
+        "ctas_per_sm": attn_t["ctas_per_sm"], "sms": sms,
         "ms_32k": attn_32k["ms"], "bound_ms_32k": attn_32k["bound_ms"],
         "library_ms_32k": attn_32k["library_ms"],
-        "ctas_32k": attn_32k["plan"]["ctas"]}, {
+        "grid_32k": attn_32k["launch"].get("grid")}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:66",
@@ -935,7 +963,9 @@ def main() -> int:
         "max_abs_err": ssd_t["max_abs_err"], "ms": ssd_t["ms"],
         "plain_ms": ssd_t["plain_ms"], "bound_ms": ssd_t["bound_ms"],
         "bound_by": ssd_t["bound_by"], "library_ms": None,
-        "library": ssd_t["library"], "ctas": ssd_t["ctas"],
+        "library": ssd_t["library"], "grid": ssd_t["launch"].get("grid"),
+        "ctas": ssd_t["launch"].get("ctas"),
+        "ctas_per_sm": ssd_t["ctas_per_sm"], "sms": sms,
         "bound_ms_reference_arithmetic":
             ssd_t["bound_ms_reference_arithmetic"]}]}))
     print(json.dumps({"nvidia_smi": smi}))

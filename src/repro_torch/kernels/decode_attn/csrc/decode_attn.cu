@@ -18,21 +18,20 @@
 //
 // * One launch.  The TPU kernel carries (m, l, acc) across a sequential KV
 //   grid axis; CUDA CTAs run in no order, so S is split over CTAs (split,
-//   kvh, b).  The split length is chosen on the host from Smax and the
-//   card's SM count (kernel.py::plan_splits), so the grid is about one
-//   wave of 3 CTAs an SM: at the serving shape (B*KVH = 64, Smax 2113) 6
-//   splits of 384 positions, 384 CTAs.  Each CTA writes its partial
+//   kvh, b).  The split length is chosen on the host from Smax, the card's
+//   SM count and the CTAs an SM holds (decode_attn_occupancy below;
+//   kernel.py::plan_splits), so the grid is about one wave of 3 CTAs an
+//   SM: at the serving shape (B*KVH = 64, Smax 2113) 6 splits of 384
+//   positions, 384 CTAs.  Each CTA writes its partial
 //   (m, l, acc) and takes a ticket from a per-(b, kvh) counter; the last
 //   CTA to finish merges the partials of its G heads and resets the
 //   counter to 0 for the next call.  With one split the CTA writes the
 //   output directly.
 // * The ring: tiles of 32 positions are copied in their storage type with
-//   16-byte cp.async and an L2::128B prefetch hint, 2 deep in the
-//   tensor-core kernel (35 KB a CTA at dh 128) and 4 deep in the CUDA-core
-//   kernel where a row is at most 256 bytes, else 2; one __syncthreads a
-//   tile.  Measured on an H100 (tools/sweep_decode_attn.py): 2 stages beat
-//   4 at the same grid, and 3 CTAs an SM beat filling every slot the
-//   shared memory allows (6).
+//   16-byte cp.async and an L2::128B prefetch hint, 2 deep (35 KB a CTA at
+//   dh 128 in bf16); one __syncthreads a tile.  Measured on an H100
+//   (PERF.md): deeper rings were no faster, and at long caches the kernel
+//   streams K and V at ~88 % of the card's 3.35 TB/s.
 // * bf16 with G <= 8 (decode_attn_tc, the serving path): q.K runs on the
 //   tensor cores, mma.sync.m16n8k16 with the group's G heads as the rows of
 //   A (padded to 16; q and K are bf16, so the products are exact and
@@ -43,13 +42,13 @@
 //   different result): lane i holds columns [i*dh/32, (i+1)*dh/32) of
 //   every head, reads a position's V slice with one vector load and takes
 //   p by shuffle.  Per position the CTA issues ~25 instructions against
-//   ~100 with one warp per head (the float32 instance, below), which
-//   issued too slowly to keep the loads in flight.
-// * float32, or G > 8 (decode_attn_kernel): one warp per query head of the
-//   group; lane i holds q's columns [i*dh/32, (i+1)*dh/32) in registers; q.K
-//   is a vector load of each row's slice, dh/32 FMAs and a transposing
-//   shuffle reduction (31 shuffles a tile) that leaves position j's score
-//   in lane j; p.V as above.  Float32 arithmetic throughout.
+//   ~100 with one warp per head (the CUDA-core kernel below).
+// * float32, or G > 8 (decode_attn_kernel, off the serving path: the
+//   float32 replay and tests): one warp per query head of the group, q in
+//   shared memory as float32, lane j scores position j of a tile from
+//   16-byte reads of its K row, rows padded by 16 bytes against bank
+//   conflicts; p.V broadcasts p_j by shuffle and lane i accumulates columns
+//   i + 32 c.  Float32 arithmetic throughout.
 // * Either way K and V are read from device memory once for all G heads.
 // * Ragged lengths: a CTA stops at lengths[b] (for lengths >= 1 a masked
 //   weight exp(-1e30 - m) is exactly 0 in float32, so skipping is exact);
@@ -77,12 +76,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// ring depth: 4 stages where a row is at most 256 bytes, else 2
-template <class T, int dh>
-__host__ __device__ constexpr int stages() {
-  return dh * static_cast<int>(sizeof(T)) <= 256 ? 4 : 2;
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
@@ -95,37 +88,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// N consecutive elements at p (N * sizeof(T)-byte aligned) as float32, in
-// one vector load where N * sizeof(T) <= 16.
-template <int N>
-__device__ __forceinline__ void load_slice(const float* p, float* out) {
-  if constexpr (N % 4 == 0) {
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// 16 bytes of T at p (shared memory) as float32: 4 floats or 8 bfloat16s.
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + i);
-      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x; out[1] = v.y;
-  } else {
-    out[0] = p[0];
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
   }
 }
 
+// N consecutive bfloat16s at p (2N-byte aligned) as float32, in vector loads.
 template <int N>
 __device__ __forceinline__ void load_slice(const __nv_bfloat16* p, float* out) {
   if constexpr (N % 8 == 0) {
 #pragma unroll
-    for (int i = 0; i < N; i += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(p + i);
-      const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h[j]);
-        out[i + 2 * j] = f.x; out[i + 2 * j + 1] = f.y;
-      }
-    }
+    for (int i = 0; i < N; i += 8) load16(p + i, out + i);
   } else if constexpr (N == 4) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -137,21 +124,6 @@ __device__ __forceinline__ void load_slice(const __nv_bfloat16* p, float* out) {
   } else {
     out[0] = __bfloat162float(p[0]);
   }
-}
-
-// Transposing sum across the warp: every lane holds v[0..2W) partial values
-// of 2W positions; afterwards v[0] of lane i holds the sum over all lanes of
-// position i (2W = 32: 16 + 8 + 4 + 2 + 1 shuffles).
-template <int W>
-__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
-  const bool upper = (lane & W) != 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float send = upper ? v[i] : v[i + W];
-    const float keep = upper ? v[i + W] : v[i];
-    v[i] = keep + __shfl_xor_sync(kFull, send, W);
-  }
-  if constexpr (W > 1) reduce_scatter<W / 2>(v, lane);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -185,19 +157,27 @@ __device__ __forceinline__ void mma_rows8(float (&d)[4], uint32_t a0, uint32_t a
       : "r"(a0), "r"(zero), "r"(a2), "r"(zero), "r"(b0), "r"(b1));
 }
 
+// Column of acc's i-th value in lane `lane`: lane + 32 i (kStrided, the
+// CUDA-core kernel) or lane * kPerLane + i (the tensor-core kernel).
+template <int kPerLane, bool kStrided>
+__device__ __forceinline__ int column(int lane, int i) {
+  return kStrided ? lane + 32 * i : lane * kPerLane + i;
+}
+
 // Write head's partial (m, l, acc) of this split, or its output where the
-// split is the only one.  Lane i holds acc's columns [i*kPerLane, +kPerLane).
-template <class T, int kPerLane>
+// split is the only one.
+template <class T, int kPerLane, bool kStrided>
 __device__ __forceinline__ void write_split(float m, float l, const float (&acc)[kPerLane],
                                             int64_t head, int64_t split, int64_t nsplit,
                                             float* part_m, float* part_l, float* part_acc,
                                             T* out, int lane) {
   constexpr int dh = 32 * kPerLane;
-  const int col = lane * kPerLane;
   if (nsplit == 1) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) out[head * dh + col + i] = from_f32<T>(acc[i] / den);
+    for (int i = 0; i < kPerLane; ++i) {
+      out[head * dh + column<kPerLane, kStrided>(lane, i)] = from_f32<T>(acc[i] / den);
+    }
     return;
   }
   const int64_t slot = head * nsplit + split;
@@ -206,7 +186,7 @@ __device__ __forceinline__ void write_split(float m, float l, const float (&acc)
     part_l[slot] = l;
   }
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) part_acc[slot * dh + col + i] = acc[i];
+  for (int i = 0; i < kPerLane; ++i) part_acc[slot * dh + column<kPerLane, kStrided>(lane, i)] = acc[i];
 }
 
 // After every thread has written its partials: true in the CTA that
@@ -225,12 +205,11 @@ __device__ __forceinline__ bool last_of_splits(int32_t* counter, int64_t nsplit,
 // over the nsplit partials of `head`, by one warp.  Split 0 always holds a
 // position, so max m is finite; empty splits (m = -inf, l = 0, acc = 0) get
 // weight 0.  The partials were written by other CTAs: read through L2.
-template <class T, int kPerLane>
+template <class T, int kPerLane, bool kStrided>
 __device__ __forceinline__ void merge_splits(const float* part_m, const float* part_l,
                                              const float* part_acc, T* out, int64_t head,
                                              int64_t nsplit, int lane) {
   constexpr int dh = 32 * kPerLane;
-  const int col = lane * kPerLane;
   const float* pm = part_m + head * nsplit;
   const float* pl = part_l + head * nsplit;
   float mx = -INFINITY;
@@ -244,16 +223,20 @@ __device__ __forceinline__ void merge_splits(const float* part_m, const float* p
   for (int i = 0; i < kPerLane; ++i) num[i] = 0.0f;
   for (int64_t s = 0; s < nsplit; ++s) {
     const float w = expf(__ldcg(pm + s) - mx);
-    const float* pa = part_acc + (head * nsplit + s) * dh + col;
+    const float* pa = part_acc + (head * nsplit + s) * dh;
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) num[i] = fmaf(__ldcg(pa + i), w, num[i]);
+    for (int i = 0; i < kPerLane; ++i) {
+      num[i] = fmaf(__ldcg(pa + column<kPerLane, kStrided>(lane, i)), w, num[i]);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) out[head * dh + col + i] = from_f32<T>(num[i] / den);
+  for (int i = 0; i < kPerLane; ++i) {
+    out[head * dh + column<kPerLane, kStrided>(lane, i)] = from_f32<T>(num[i] / den);
+  }
 }
 
 // grid (nsplit, KVH, B), block 32*G threads; warp g serves query head
-// kvh*G+g.  kPerLane = dh / 32 columns a lane: [lane*kPerLane, +kPerLane).
+// kvh*G+g.  kPerLane = dh / 32 output columns a lane: column lane + 32*i.
 template <class T, int kPerLane>
 __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    const T* __restrict__ v,
@@ -264,10 +247,11 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
                                    int64_t split_len, float scale) {
   constexpr int dh = 32 * kPerLane;
   constexpr int kVec = 16 / sizeof(T);            // elements in 16 bytes
+  constexpr int kRow = dh + kVec;                 // padded row, in elements
   constexpr int kChunks = dh / kVec;              // 16-byte chunks a row
-  constexpr int kStages = stages<T, dh>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);       // [kStages][K|V][kTile][dh]
+  float* qs = reinterpret_cast<float*>(smem_raw);                 // group x dh
+  T* tiles = reinterpret_cast<T*>(qs + group * dh);               // [2][K|V][kTile][kRow]
   __shared__ int last_cta;
   const int64_t b = blockIdx.z;
   const int kvh = blockIdx.y;
@@ -276,8 +260,7 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t heads = static_cast<int64_t>(kvh_count) * group;
-  const int64_t head = b * heads + static_cast<int64_t>(kvh) * group + warp;
-  const int col = lane * kPerLane;
+  const int64_t head0 = b * heads + static_cast<int64_t>(kvh) * group;
 
   const int64_t len = lengths ? static_cast<int64_t>(lengths[b]) : smax;
   const int64_t n = len >= 1 ? (len < smax ? len : smax) : smax;
@@ -285,24 +268,24 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
   const int64_t end = start + split_len < n ? start + split_len : n;
   const int ntiles = end > start ? static_cast<int>((end - start + kTile - 1) / kTile) : 0;
 
-  float qv[kPerLane];
-  load_slice<kPerLane>(q + head * dh + col, qv);
+  const T* qb = q + head0 * dh;
+  for (int i = threadIdx.x; i < group * dh; i += blockDim.x) qs[i] = to_f32(qb[i]);
   const int64_t row = static_cast<int64_t>(kvh_count) * dh;   // between positions
   const T* kb = k + (b * smax * kvh_count + kvh) * dh;
   const T* vb = v + (b * smax * kvh_count + kvh) * dh;
 
-  // stage tile `tile` into ring slot `buf`: rows past `end` are left unread
+  // stage tile `tile` into buffer `buf`: rows past `end` are left unread
   auto stage = [&](int tile, int buf) {
     const int64_t t0 = start + static_cast<int64_t>(tile) * kTile;
     const int nt = static_cast<int>(end - t0 < kTile ? end - t0 : kTile);
-    T* ks = ring + static_cast<size_t>(buf) * 2 * kTile * dh;
-    T* vs = ks + kTile * dh;
+    T* ks = tiles + static_cast<size_t>(buf) * 2 * kTile * kRow;
+    T* vs = ks + kTile * kRow;
     for (int i = threadIdx.x; i < nt * kChunks; i += blockDim.x) {
       const int r = i / kChunks;
       const int c = (i - r * kChunks) * kVec;
       const int64_t off = (t0 + r) * row + c;
-      cp_async16(ks + r * dh + c, kb + off);
-      cp_async16(vs + r * dh + c, vb + off);
+      cp_async16(ks + r * kRow + c, kb + off);
+      cp_async16(vs + r * kRow + c, vb + off);
     }
   };
 
@@ -310,38 +293,34 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
   float acc[kPerLane];
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
+  const float* qh = qs + warp * dh;
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ntiles) stage(s, s);
-    cp_async_commit();       // possibly empty: keeps the group count exact
-  }
+  if (ntiles > 0) stage(0, 0);
+  cp_async_commit();
   for (int tile = 0; tile < ntiles; ++tile) {
-    cp_async_wait<kStages - 2>();   // this tile's copies have landed
-    __syncthreads();                // ... for every thread; slot tile-1 is free
-    const int next = tile + kStages - 1;
-    if (next < ntiles) stage(next, next % kStages);
-    cp_async_commit();
+    if (tile + 1 < ntiles) stage(tile + 1, (tile + 1) & 1);
+    cp_async_commit();       // possibly empty: keeps wait_group 1 exact
+    cp_async_wait<1>();      // this tile's copies (and qs) have landed
+    __syncthreads();
     const int64_t t0 = start + static_cast<int64_t>(tile) * kTile;
     const int nt = static_cast<int>(end - t0 < kTile ? end - t0 : kTile);
-    const T* ks = ring + static_cast<size_t>(tile % kStages) * 2 * kTile * dh;
-    const T* vs = ks + kTile * dh;
-
-    // partial dots of this lane's columns with every position of the tile
-    // (rows past nt hold stale data: it lands only in lanes >= nt, masked)
-    float part[kTile];
+    const T* ks = tiles + static_cast<size_t>(tile & 1) * 2 * kTile * kRow;
+    const T* vs = ks + kTile * kRow;
+    float s = -INFINITY;
+    if (lane < nt) {
+      const T* kr = ks + lane * kRow;
+      float dot = 0.0f;
+#pragma unroll 4
+      for (int c = 0; c < dh; c += kVec) {
+        float kv[kVec], qv[kVec];
+        load16(kr + c, kv);
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      float kv[kPerLane];
-      load_slice<kPerLane>(ks + j * dh + col, kv);
-      float d = 0.0f;
+        for (int j = 0; j < kVec; j += 4) load16(qh + c + j, qv + j);
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i) d = fmaf(qv[i], kv[i], d);
-      part[j] = d;
+        for (int j = 0; j < kVec; ++j) dot = fmaf(qv[j], kv[j], dot);
+      }
+      s = dot * scale + (t0 + lane < len ? 0.0f : kMasked);
     }
-    reduce_scatter<kTile / 2>(part, lane);
-    const float s = lane < nt ? part[0] * scale + (t0 + lane < len ? 0.0f : kMasked)
-                              : -INFINITY;
     const float m_new = fmaxf(m, warp_max(s));
     const float p = lane < nt ? expf(s - m_new) : 0.0f;
     const float alpha = expf(m - m_new);   // 0 on the first tile (m = -inf)
@@ -350,20 +329,20 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
     for (int i = 0; i < kPerLane; ++i) acc[i] *= alpha;
     for (int j = 0; j < nt; ++j) {
       const float pj = __shfl_sync(kFull, p, j);
-      float vv[kPerLane];
-      load_slice<kPerLane>(vs + j * dh + col, vv);
+      const T* vr = vs + j * kRow + lane;
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i) acc[i] = fmaf(pj, vv[i], acc[i]);
+      for (int i = 0; i < kPerLane; ++i) acc[i] = fmaf(pj, to_f32(vr[32 * i]), acc[i]);
     }
     m = m_new;
+    __syncthreads();         // every warp is done with this buffer
   }
 
-  write_split<T, kPerLane>(m, l, acc, head, split, nsplit, part_m, part_l, part_acc, out,
-                           lane);
+  write_split<T, kPerLane, true>(m, l, acc, head0 + warp, split, nsplit, part_m, part_l,
+                                 part_acc, out, lane);
   if (nsplit == 1) return;
   int32_t* counter = counters + b * kvh_count + kvh;
   if (!last_of_splits(counter, nsplit, &last_cta)) return;
-  merge_splits<T, kPerLane>(part_m, part_l, part_acc, out, head, nsplit, lane);
+  merge_splits<T, kPerLane, true>(part_m, part_l, part_acc, out, head0 + warp, nsplit, lane);
   if (threadIdx.x == 0) *counter = 0;   // ready for the next call on this stream
 }
 
@@ -547,39 +526,50 @@ decode_attn_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
           num[i] = fmaf(wacc[(w * kG + hh) * dh + col + i], e, num[i]);
       }
     }
-    write_split<bf16, kPerLane>(mx, den, num, head0 + hh, split, nsplit, part_m, part_l,
+    write_split<bf16, kPerLane, false>(mx, den, num, head0 + hh, split, nsplit, part_m, part_l,
                                 part_acc, out, lane);
   }
   if (nsplit == 1) return;
   int32_t* counter = counters + b * kvh_count + kvh;
   if (!last_of_splits(counter, nsplit, &last_cta)) return;
   for (int hh = warp; hh < group; hh += kWarps)
-    merge_splits<bf16, kPerLane>(part_m, part_l, part_acc, out, head0 + hh, nsplit, lane);
+    merge_splits<bf16, kPerLane, false>(part_m, part_l, part_acc, out, head0 + hh, nsplit, lane);
   if (threadIdx.x == 0) *counter = 0;   // ready for the next call on this stream
 }
 
+// A call's pointers and sizes (see decode_attn below).
+struct Args {
+  const void *q, *k, *v;
+  const int32_t* lengths;
+  float *part_m, *part_l, *part_acc;
+  int32_t* counters;
+  void* out;
+  int64_t B, smax, kvh, group, split_len;
+  float scale;
+  cudaStream_t stream;
+};
+
+// The launch for kernel instance (T, kPerLane, kG): kG > 0 is the
+// tensor-core kernel for bf16 with G <= kG, kG = 0 the CUDA-core kernel.
+// With `ctas` null it launches; otherwise it launches nothing and sets
+// *ctas to the CTAs of this launch that an SM holds at once.
 template <class T, int kPerLane, int kG>
-cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* lengths,
-                   float* pm, float* pl, float* pa, int32_t* counters, void* out, int64_t B,
-                   int64_t smax, int64_t kvh, int64_t group, int64_t split_len, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args& a, int* ctas) {
   constexpr int dh = 32 * kPerLane;
-  const int64_t nsplit = (smax + split_len - 1) / split_len;
-  const dim3 grid(static_cast<unsigned>(nsplit), static_cast<unsigned>(kvh),
-                  static_cast<unsigned>(B));
   size_t smem;
   unsigned threads;
   void (*kernel)(const T*, const T*, const T*, const int32_t*, float*, float*, float*,
                  int32_t*, T*, int64_t, int, int, int64_t, float);
-  if constexpr (kG > 0) {          // bf16, G <= kG: q.K on the tensor cores
+  if constexpr (kG > 0) {
     const size_t ring = static_cast<size_t>(kTcStages) * 2 * kTile * (dh + 8) * sizeof(T);
     const size_t merge = sizeof(float) * (2 * 4 * kG + 4 * kG * dh);
     smem = ring > merge ? ring : merge;
     threads = kTcThreads;
     kernel = decode_attn_tc<kPerLane, kG>;
-  } else {                         // one warp per head on the CUDA cores
-    smem = static_cast<size_t>(stages<T, dh>()) * 2 * kTile * dh * sizeof(T);
-    threads = static_cast<unsigned>(32 * group);
+  } else {
+    constexpr int kRow = dh + 16 / static_cast<int>(sizeof(T));
+    smem = a.group * dh * sizeof(float) + 2 * 2 * kTile * kRow * sizeof(T);
+    threads = static_cast<unsigned>(32 * a.group);
     kernel = decode_attn_kernel<T, kPerLane>;
   }
   if (smem > 48 * 1024) {
@@ -587,39 +577,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* l
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      pm, pl, pa, counters, static_cast<T*>(out), smax, static_cast<int>(kvh),
-      static_cast<int>(group), split_len, scale);
+  if (ctas != nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, static_cast<int>(threads),
+                                                         smem);
+  }
+  const int64_t nsplit = (a.smax + a.split_len - 1) / a.split_len;
+  const dim3 grid(static_cast<unsigned>(nsplit), static_cast<unsigned>(a.kvh),
+                  static_cast<unsigned>(a.B));
+  kernel<<<grid, threads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.lengths, a.part_m, a.part_l, a.part_acc, a.counters, static_cast<T*>(a.out), a.smax,
+      static_cast<int>(a.kvh), static_cast<int>(a.group), a.split_len, a.scale);
   return cudaGetLastError();
 }
 
 // bf16 with G <= 8 goes to the tensor-core kernel (kG = G rounded up to a
 // power of two), everything else to the CUDA-core kernel (kG = 0)
 template <class T, int kPerLane>
-cudaError_t launch_any(const void* q, const void* k, const void* v, const int32_t* lengths,
-                       float* pm, float* pl, float* pa, int32_t* cnt, void* out, int64_t B,
-                       int64_t smax, int64_t kvh, int64_t group, int64_t split_len,
-                       float scale, cudaStream_t s) {
+cudaError_t launch_any(const Args& a, int* ctas) {
   if constexpr (sizeof(T) == 2) {
-    if (group <= 1) return launch<T, kPerLane, 1>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
-    if (group <= 2) return launch<T, kPerLane, 2>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
-    if (group <= 4) return launch<T, kPerLane, 4>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
-    if (group <= 8) return launch<T, kPerLane, 8>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    if (a.group <= 1) return launch<T, kPerLane, 1>(a, ctas);
+    if (a.group <= 2) return launch<T, kPerLane, 2>(a, ctas);
+    if (a.group <= 4) return launch<T, kPerLane, 4>(a, ctas);
+    if (a.group <= 8) return launch<T, kPerLane, 8>(a, ctas);
   }
-  return launch<T, kPerLane, 0>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+  return launch<T, kPerLane, 0>(a, ctas);
 }
 
 template <class T>
-cudaError_t dispatch(int64_t dh, const void* q, const void* k, const void* v,
-                     const int32_t* lengths, float* pm, float* pl, float* pa, int32_t* cnt,
-                     void* out, int64_t B, int64_t smax, int64_t kvh, int64_t group,
-                     int64_t split_len, float scale, cudaStream_t s) {
+cudaError_t dispatch(int64_t dh, const Args& a, int* ctas) {
   switch (dh) {
-    case 32: return launch_any<T, 1>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
-    case 64: return launch_any<T, 2>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
-    case 128: return launch_any<T, 4>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
-    case 256: return launch_any<T, 8>(q, k, v, lengths, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
+    case 32: return launch_any<T, 1>(a, ctas);
+    case 64: return launch_any<T, 2>(a, ctas);
+    case 128: return launch_any<T, 4>(a, ctas);
+    case 256: return launch_any<T, 8>(a, ctas);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_dtype(int dtype, int64_t dh, const Args& a, int* ctas) {
+  if (a.group < 1 || a.group > 32) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return dispatch<float>(dh, a, ctas);
+    case 1: return dispatch<__nv_bfloat16>(dh, a, ctas);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -642,20 +642,22 @@ int decode_attn(int dtype, const void* q, const void* k, const void* v, const vo
                 int64_t B, int64_t smax, int64_t kvh, int64_t group, int64_t dh,
                 int64_t split_len, float scale, void* stream) {
   if (B == 0 || kvh == 0) return cudaSuccess;
-  if (smax <= 0 || group < 1 || group > 32 || split_len <= 0 || split_len % kTile) {
-    return cudaErrorInvalidValue;
-  }
-  const auto* len = static_cast<const int32_t*>(lengths);
-  auto* pm = static_cast<float*>(part_m);
-  auto* pl = static_cast<float*>(part_l);
-  auto* pa = static_cast<float*>(part_acc);
-  auto* cnt = static_cast<int32_t*>(counters);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch<float>(dh, q, k, v, len, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
-    case 1: return dispatch<__nv_bfloat16>(dh, q, k, v, len, pm, pl, pa, cnt, out, B, smax, kvh, group, split_len, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (smax <= 0 || split_len <= 0 || split_len % kTile) return cudaErrorInvalidValue;
+  const Args a{q, k, v, static_cast<const int32_t*>(lengths), static_cast<float*>(part_m),
+               static_cast<float*>(part_l), static_cast<float*>(part_acc),
+               static_cast<int32_t*>(counters), out, B, smax, kvh, group, split_len, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch_dtype(dtype, dh, a, nullptr);
+}
+
+// The CTAs of decode_attn's launch for (dtype, dh, G) that one SM of the
+// current device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// for the kernel, block and shared memory that launch uses), in *ctas.
+// Returns the CUDA error (0 on success).
+int decode_attn_occupancy(int dtype, int64_t dh, int64_t group, int* ctas) {
+  Args a{};
+  a.group = group;
+  return dispatch_dtype(dtype, dh, a, ctas);
 }
 
 const char* decode_attn_error_string(int err) {

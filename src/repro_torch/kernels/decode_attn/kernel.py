@@ -12,9 +12,10 @@ float32 or bfloat16, all three alike; the output has q's dtype.
 The kernel (``csrc/decode_attn.cu``; bf16 with G <= 8 runs q·Kᵀ on the
 tensor cores) splits S over CTAs and the last CTA of each (sequence, KV
 head) merges the partial softmax states, in one launch.  ``plan_splits``
-sizes the splits from Smax and the card's SM count, so the grid is about
-one wave of ``TARGET_CTAS_PER_SM`` CTAs an SM; the scratch for the
-partials and the per-(sequence, KV head) tickets are allocated here.
+sizes the splits from Smax, the card's SM count and the CTAs an SM holds
+(which the library reports for its own launch), so the grid is about one
+wave; the scratch for the partials and the per-(sequence, KV head)
+tickets are allocated here.
 ``lengths`` stays on the device: the wrapper never reads it on the host,
 so a decode step makes no host sync.
 
@@ -45,21 +46,11 @@ MAX_GROUP = 32
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_YZ = 65535
 
-#: per SM of an H100 (sm_90): shared memory, the share the runtime keeps
-#: per CTA, and threads
-SM_SHARED_BYTES = 228 * 1024
-CTA_RESERVED_BYTES = 1024
-SM_MAX_THREADS = 2048
-
-#: the tensor-core kernel (bf16, G <= 8): 4 warps of 8 positions a tile,
-#: a ring 2 tiles deep
-TC_MAX_GROUP = 8
-TC_THREADS = 128
-TC_STAGES = 2
-
-#: CTAs an SM the split plan aims at: on an H100 3 beat filling every slot
+#: CTAs an SM the split plan aims at (at most what an SM holds): on an
+#: H100 3 beat filling every slot at the serving shape, and at longer
+#: caches the split count moves the time by under 2 %
 #: (tools/sweep_decode_attn.py; PERF.md)
-TARGET_CTAS_PER_SM = 3
+CTAS_PER_SM = 3
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,55 +63,29 @@ def build() -> Built:
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 \
         + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    occ = built.lib.decode_attn_occupancy
+    occ.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
     built.lib.decode_attn_error_string.argtypes = [ctypes.c_int]
     built.lib.decode_attn_error_string.restype = ctypes.c_char_p
     return built
 
 
-def tensor_cores(itemsize: int, group: int) -> bool:
-    """Whether the launch takes the tensor-core kernel: bf16, G <= 8."""
-    return itemsize == 2 and group <= TC_MAX_GROUP
-
-
-def smem_bytes(dh: int, itemsize: int, group: int) -> int:
-    """Dynamic shared memory of a CTA (``launch()`` in the source): the
-    ring of K and V tiles, in the CUDA-core kernel 4 stages deep where a
-    row is at most 256 bytes, else 2 (``stages()``); in the tensor-core
-    kernel ``TC_STAGES`` deep with rows padded by 16 bytes, and at least
-    what its end-of-CTA merge of the 4 warps' states reuses."""
-    row = dh * itemsize
-    if not tensor_cores(itemsize, group):
-        return (4 if row <= 256 else 2) * 2 * TILE * row
-    kg = 1 << (group - 1).bit_length()
-    return max(TC_STAGES * 2 * TILE * (row + 16),
-               4 * (2 * 4 * kg + 4 * kg * dh))
-
-
-def cta_threads(itemsize: int, group: int) -> int:
-    return TC_THREADS if tensor_cores(itemsize, group) else 32 * group
-
-
-def resident_ctas(num_sms: int, dh: int, itemsize: int, group: int) -> int:
-    """CTAs the split plan fills: ``TARGET_CTAS_PER_SM`` an SM, or fewer
-    where shared memory or threads allow fewer."""
-    per_sm = min(SM_SHARED_BYTES // (smem_bytes(dh, itemsize, group) + 16
-                                     + CTA_RESERVED_BYTES),
-                 SM_MAX_THREADS // cta_threads(itemsize, group),
-                 TARGET_CTAS_PER_SM)
-    return num_sms * max(per_sm, 1)
-
-
-def plan_splits(smax: int, rows: int, slots: int) -> tuple[int, int]:
+def plan_splits(smax: int, rows: int, sms: int,
+                per_sm: int) -> tuple[int, int]:
     """(split_len, nsplit) for ``rows`` = B·KVH sequences × KV heads over
-    ``smax`` positions on a card that holds ``slots`` CTAs at once.
+    ``smax`` positions on a card of ``sms`` SMs that each hold ``per_sm``
+    of the kernel's CTAs at once.
 
     Each (b, kvh) gets ``max(1, slots // rows)`` splits or fewer, each a
-    whole number of 32-position tiles, so the grid of ``rows · nsplit``
+    whole number of 32-position tiles, where ``slots`` is
+    ``min(per_sm, CTAS_PER_SM)`` CTAs an SM: the grid of ``rows · nsplit``
     CTAs is at most one wave (or ``rows`` CTAs where that exceeds it)."""
-    if smax < 1 or rows < 1 or slots < 1:
-        raise ValueError(f"need smax, rows, slots >= 1; got {smax}, {rows}, "
-                         f"{slots}")
-    want = max(1, slots // rows)
+    if min(smax, rows, sms, per_sm) < 1:
+        raise ValueError(f"need smax, rows, sms, per_sm >= 1; got {smax}, "
+                         f"{rows}, {sms}, {per_sm}")
+    want = max(1, sms * min(per_sm, CTAS_PER_SM) // rows)
     tiles = -(-smax // TILE)
     split_len = -(-tiles // want) * TILE
     return split_len, -(-smax // split_len)
@@ -131,15 +96,34 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.cache
+def occupancy(device: torch.device, dtype: torch.dtype, dh: int,
+              group: int) -> int:
+    """CTAs of the kernel's launch for (dtype, dh, G) that one SM of
+    ``device`` holds at once, as the CUDA runtime reports it for the
+    kernel, block and shared memory the launch uses."""
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = build().lib.decode_attn_occupancy(_DTYPE_CODES[dtype], dh,
+                                                group, ctypes.byref(ctas))
+    if err != 0 or ctas.value < 1:
+        raise RuntimeError(f"decode_attn occupancy query failed (error {err},"
+                           f" {ctas.value} CTAs an SM) for {dtype}, dh={dh},"
+                           f" G={group}")
+    return ctas.value
+
+
 def plan(q: torch.Tensor, k: torch.Tensor) -> dict:
     """The launch ``decode_attention`` makes for these q and k on their
-    CUDA device: split length, splits, CTAs and the card's CTA slots."""
+    CUDA device: split length, splits, CTAs, and the card's SMs and the
+    CTAs an SM holds."""
     B, H, dh = q.shape
     S, KVH = k.shape[1], k.shape[2]
-    slots = resident_ctas(_num_sms(q.device), dh, q.element_size(), H // KVH)
-    split_len, nsplit = plan_splits(S, B * KVH, slots)
+    sms = _num_sms(q.device)
+    per_sm = occupancy(q.device, q.dtype, dh, H // KVH)
+    split_len, nsplit = plan_splits(S, B * KVH, sms, per_sm)
     return {"split_len": split_len, "nsplit": nsplit,
-            "ctas": B * KVH * nsplit, "slots": slots}
+            "ctas": B * KVH * nsplit, "sms": sms, "per_sm": per_sm}
 
 
 _COUNTERS: dict = {}

@@ -440,16 +440,22 @@ ssd_scan_tc(const bf16* __restrict__ x, const bf16* __restrict__ b, const bf16* 
   }
 }
 
+// With `ctas` null launch_tc, dispatch_tc and launch_f32 launch; otherwise
+// they launch nothing and set *ctas to the CTAs of that launch an SM holds
+// at once.
 template <int DSP, int DHP>
 cudaError_t launch_tc(const void* x, const void* b, const void* c, const float* a, void* y,
                       float* h_last, int64_t B, int64_t T_len, int64_t nh, int64_t groups,
-                      int64_t dh, int64_t ds, cudaStream_t stream) {
+                      int64_t dh, int64_t ds, cudaStream_t stream, int* ctas) {
   constexpr int smem = tc_smem_bytes<DSP, DHP>();
   auto kernel = ssd_scan_tc<DSP, DHP>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+  }
+  if (ctas != nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, kTcThreads, smem);
   }
   const dim3 grid(static_cast<unsigned>(nh), static_cast<unsigned>(B));
   kernel<<<grid, kTcThreads, smem, stream>>>(
@@ -462,10 +468,10 @@ cudaError_t launch_tc(const void* x, const void* b, const void* c, const float* 
 template <int DHP>
 cudaError_t dispatch_tc(const void* x, const void* b, const void* c, const float* a, void* y,
                         float* h_last, int64_t B, int64_t T_len, int64_t nh, int64_t groups,
-                        int64_t dh, int64_t ds, cudaStream_t s) {
-  if (ds <= 32) return launch_tc<32, DHP>(x, b, c, a, y, h_last, B, T_len, nh, groups, dh, ds, s);
-  if (ds <= 64) return launch_tc<64, DHP>(x, b, c, a, y, h_last, B, T_len, nh, groups, dh, ds, s);
-  return launch_tc<128, DHP>(x, b, c, a, y, h_last, B, T_len, nh, groups, dh, ds, s);
+                        int64_t dh, int64_t ds, cudaStream_t s, int* ctas) {
+  if (ds <= 32) return launch_tc<32, DHP>(x, b, c, a, y, h_last, B, T_len, nh, groups, dh, ds, s, ctas);
+  if (ds <= 64) return launch_tc<64, DHP>(x, b, c, a, y, h_last, B, T_len, nh, groups, dh, ds, s, ctas);
+  return launch_tc<128, DHP>(x, b, c, a, y, h_last, B, T_len, nh, groups, dh, ds, s, ctas);
 }
 
 // ---------------------------------------------------------------------------
@@ -637,7 +643,7 @@ ssd_scan_f32(const float* __restrict__ x, const float* __restrict__ b, const flo
 
 cudaError_t launch_f32(const void* x, const void* b, const void* c, const float* a, void* y,
                        float* h_last, int64_t B, int64_t T_len, int64_t nh, int64_t groups,
-                       int64_t dh, int64_t ds, int64_t L, cudaStream_t stream) {
+                       int64_t dh, int64_t ds, int64_t L, cudaStream_t stream, int* ctas) {
   const int64_t Lp = (L + kRows - 1) / kRows * kRows;
   const size_t smem = sizeof(float) * static_cast<size_t>(
       ds * dh + Lp * (ds + 1) + Lp * dh + ds * kT + Lp * kT + 2 * Lp);
@@ -647,12 +653,33 @@ cudaError_t launch_f32(const void* x, const void* b, const void* c, const float*
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
+  if (ctas != nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, kF32Threads, smem);
+  }
   const dim3 grid(static_cast<unsigned>(nh), static_cast<unsigned>(B));
   kernel<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(b), static_cast<const float*>(c), a,
       static_cast<float*>(y), h_last, T_len, static_cast<int>(nh), static_cast<int>(groups),
       static_cast<int>(dh), static_cast<int>(ds), static_cast<int>(L), static_cast<int>(Lp));
   return cudaGetLastError();
+}
+cudaError_t scan(int dtype, const void* x, const void* b, const void* c, const void* a,
+                 void* y, void* h_last, int64_t B, int64_t T_len, int64_t nh, int64_t groups,
+                 int64_t dh, int64_t ds, int64_t L, void* stream, int* ctas) {
+  if (T_len <= 0 || L <= 0 || groups <= 0 || nh % groups || dh % 4 || ds % 4) {
+    return cudaErrorInvalidValue;
+  }
+  const auto* av = static_cast<const float*>(a);
+  auto* hv = static_cast<float*>(h_last);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_f32(x, b, c, av, y, hv, B, T_len, nh, groups, dh, ds, L, s, ctas);
+    case 1:
+      if (dh % 8 || ds % 8 || dh > 64 || ds > 128) return cudaErrorInvalidValue;
+      if (dh <= 32) return dispatch_tc<32>(x, b, c, av, y, hv, B, T_len, nh, groups, dh, ds, s, ctas);
+      return dispatch_tc<64>(x, b, c, av, y, hv, B, T_len, nh, groups, dh, ds, s, ctas);
+    default: return cudaErrorInvalidValue;
+  }
 }
 }  // namespace
 
@@ -672,20 +699,16 @@ int ssd_scan(int dtype, const void* x, const void* b, const void* c, const void*
              void* h_last, int64_t B, int64_t T_len, int64_t nh, int64_t groups, int64_t dh,
              int64_t ds, int64_t L, void* stream) {
   if (B == 0 || nh == 0) return cudaSuccess;
-  if (T_len <= 0 || L <= 0 || groups <= 0 || nh % groups || dh % 4 || ds % 4) {
-    return cudaErrorInvalidValue;
-  }
-  const auto* av = static_cast<const float*>(a);
-  auto* hv = static_cast<float*>(h_last);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_f32(x, b, c, av, y, hv, B, T_len, nh, groups, dh, ds, L, s);
-    case 1:
-      if (dh % 8 || ds % 8 || dh > 64 || ds > 128) return cudaErrorInvalidValue;
-      if (dh <= 32) return dispatch_tc<32>(x, b, c, av, y, hv, B, T_len, nh, groups, dh, ds, s);
-      return dispatch_tc<64>(x, b, c, av, y, hv, B, T_len, nh, groups, dh, ds, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return scan(dtype, x, b, c, a, y, h_last, B, T_len, nh, groups, dh, ds, L, stream, nullptr);
+}
+
+// The CTAs of ssd_scan's launch for (dtype, dh, ds, L) that one SM of the
+// current device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// for the kernel, block and shared memory that launch uses), in *ctas.
+// Returns the CUDA error (0 on success).
+int ssd_occupancy(int dtype, int64_t dh, int64_t ds, int64_t L, int* ctas) {
+  return scan(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, L, 1, 1, dh, ds,
+              L, nullptr, ctas);
 }
 
 const char* ssd_error_string(int err) {

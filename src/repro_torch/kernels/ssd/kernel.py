@@ -40,17 +40,6 @@ SUB_CHUNK = 32
 TC_MAX_DH, TC_MAX_DS = 64, 128
 
 
-def tc_smem_bytes(dh: int, ds: int) -> int:
-    """Dynamic shared memory of a bfloat16-instance CTA (``tc_smem_bytes``
-    in the source): two buffers of x, b, c (bf16) and a (float32) for a
-    sub-chunk, and h as a bf16 hi/lo pair, with dh and ds padded to the
-    tile widths the kernel is built for."""
-    dhp = 32 if dh <= 32 else 64
-    dsp = 32 if ds <= 32 else 64 if ds <= 64 else 128
-    buffer = SUB_CHUNK * dhp * 2 + 2 * SUB_CHUNK * dsp * 2 + SUB_CHUNK * 4
-    return 2 * buffer + 2 * dsp * dhp * 2
-
-
 @functools.cache
 def build() -> Built:
     """Compile (at first use) and load the kernel library."""
@@ -59,9 +48,30 @@ def build() -> Built:
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
         + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    occ = built.lib.ssd_occupancy
+    occ.argtypes = [ctypes.c_int] + [ctypes.c_int64] * 3 \
+        + [ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
     built.lib.ssd_error_string.argtypes = [ctypes.c_int]
     built.lib.ssd_error_string.restype = ctypes.c_char_p
     return built
+
+
+@functools.cache
+def occupancy(device: torch.device, dtype: torch.dtype, dh: int, ds: int,
+              chunk: int) -> int:
+    """CTAs of the kernel's launch for (dtype, dh, ds, chunk) that one SM
+    of ``device`` holds at once, as the CUDA runtime reports it for the
+    kernel, block and shared memory the launch uses."""
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = build().lib.ssd_occupancy(_DTYPE_CODES[dtype], dh, ds, chunk,
+                                        ctypes.byref(ctas))
+    if err != 0 or ctas.value < 1:
+        raise RuntimeError(f"ssd occupancy query failed (error {err}, "
+                           f"{ctas.value} CTAs an SM) for {dtype}, dh={dh}, "
+                           f"ds={ds}, chunk {chunk}")
+    return ctas.value
 
 
 def _check(x, b, c, a) -> None:

@@ -30,6 +30,7 @@ from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_ref)
 from repro_torch.kernels.decode_attn import kernel as attn_k
 from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
+from repro_torch.kernels.ssd import kernel as ssd_k
 from repro_torch.models import forward, init_params
 from repro_torch.serve import generate
 
@@ -201,6 +202,7 @@ def decode_edge_lengths(S, split_len, B):
     (64, 32, 8, 128, 100),    # B*KVH = 512 rows: exactly one split
     (8, 4, 1, 128, 5000),     # 8 rows: many splits
     (8, 32, 8, 128, 2113),    # the serving shape
+    (8, 32, 8, 128, 16384),   # long splits (2752 positions)
     (4, 40, 8, 128, 500),     # G = 5: heads padded to 8 on the tensor cores
     (4, 32, 2, 64, 700),      # G = 16: bf16 on the CUDA-core kernel
 ])
@@ -210,8 +212,9 @@ def test_decode_attn_split_edges(cuda, dtype, B, H, KVH, dh, S):
     k = torch.randn((B, S, KVH, dh), generator=gen, device=cuda).to(dtype)
     v = torch.randn((B, S, KVH, dh), generator=gen, device=cuda).to(dtype)
     launch = attn_k.plan(q, k)
-    assert launch["ctas"] <= max(launch["slots"], B * KVH)
-    if B * KVH >= launch["slots"]:
+    slots = launch["sms"] * min(launch["per_sm"], attn_k.CTAS_PER_SM)
+    assert launch["ctas"] <= max(slots, B * KVH)
+    if B * KVH >= slots:
         assert launch["nsplit"] == 1
     lens = torch.tensor(decode_edge_lengths(S, launch["split_len"], B),
                         dtype=torch.int32, device=cuda)
@@ -231,6 +234,20 @@ def test_decode_attn_split_edges(cuda, dtype, B, H, KVH, dh, S):
             H // KVH, dim=0), **tol)
     for counters in attn_k._COUNTERS.values():
         assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_occupancy_at_serving_widths(cuda, dtype):
+    # the CTAs an SM holds, as the runtime reports them for each launch:
+    # decode_attn at qwen3-4b's widths holds the plan's CTAS_PER_SM, and
+    # ssd's tensor-core instance at mamba2-780m's at least 2
+    per_sm = attn_k.occupancy(cuda, dtype, 128, 4)
+    assert 1 <= per_sm <= 32
+    ssd_per_sm = ssd_k.occupancy(cuda, dtype, 64, 128, 128)
+    assert ssd_per_sm >= 1
+    if dtype == torch.bfloat16:
+        assert per_sm >= attn_k.CTAS_PER_SM
+        assert ssd_per_sm >= 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

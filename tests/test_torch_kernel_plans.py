@@ -5,8 +5,8 @@
 plain torch (``ref.decode_attention_splits``) against the dense plain
 version and the JAX kernel (interpret mode), at rtol = atol = 2e-5 as the
 JAX kernel tests hold decode attention.  ``ssd``: the bfloat16 instance's
-shared memory, and its 32-step sub-chunks against the reference's chunks
-(the chunked form is one function for every chunk length), at 2e-4.
+32-step sub-chunks against the reference's chunks (the chunked form is one
+function for every chunk length), at 2e-4.
 """
 import numpy as np
 import pytest
@@ -26,47 +26,46 @@ SMAXES = [1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129, 300, 1000, 2113,
           4096, 5000, 32767, 32768, 65535, 65536]
 ROWS = [1, 2, 3, 7, 8, 16, 31, 63, 64, 65, 127, 128, 131, 132, 133, 255,
         256, 395, 396, 397, 511, 512]
-#: (dh, itemsize, G): the serving shape, its float32 replay, MQA, G = 1
-#: and G = 8, a small head, the largest float32 head
-LAUNCHES = [(128, 2, 4), (128, 4, 4), (64, 2, 16), (64, 2, 1), (128, 2, 8),
-            (32, 2, 1), (256, 4, 2)]
+#: (SMs, CTAs an SM holds): an H100 with the tensor-core kernel's 6 and
+#: fewer or more than the plan aims at, a smaller card, one SM
+CARDS = [(H100_SMS, 6), (H100_SMS, 3), (H100_SMS, 2), (H100_SMS, 1),
+         (H100_SMS, 16), (78, 4), (1, 1)]
 
 
 @pytest.mark.parametrize("smax", SMAXES)
 def test_plan_splits_cover_smax_in_tiles_within_one_wave(smax):
-    for dh, itemsize, group in LAUNCHES:
-        slots = attn_k.resident_ctas(H100_SMS, dh, itemsize, group)
+    tiles = -(-smax // attn_k.TILE)
+    for sms, per_sm in CARDS:
+        slots = sms * min(per_sm, attn_k.CTAS_PER_SM)
         for rows in ROWS:
-            split_len, nsplit = attn_k.plan_splits(smax, rows, slots)
+            split_len, nsplit = attn_k.plan_splits(smax, rows, sms, per_sm)
             assert split_len >= attn_k.TILE
             assert split_len % attn_k.TILE == 0
             # the splits cover Smax, and none lies wholly past it
             assert nsplit * split_len >= smax
             assert (nsplit - 1) * split_len < smax
             # about one wave of resident CTAs, inside the grid's limits
-            ctas = rows * nsplit
-            want = max(1, slots // rows)
-            assert nsplit <= want
-            assert ctas <= max(slots, rows)
-            if -(-smax // attn_k.TILE) >= want:
-                assert 2 * nsplit > want
+            assert nsplit <= max(1, slots // rows)
+            assert rows * nsplit <= max(slots, rows)
             assert nsplit <= attn_k.MAX_GRID_X
+            want = max(1, slots // rows)
+            if tiles >= want:
+                assert 2 * nsplit > want
 
 
 def test_plan_splits_serving_shape():
-    # qwen3-4b decode: B = 8, KVH = 8, G = 4, dh = 128, bf16, Smax 2113
-    assert attn_k.smem_bytes(128, 2, 4) == 2 * 2 * 32 * 272
-    slots = attn_k.resident_ctas(H100_SMS, 128, 2, 4)
-    assert slots == 3 * H100_SMS
-    assert attn_k.plan_splits(2113, 64, slots) == (384, 6)
-    assert attn_k.plan_splits(32768, 64, slots) == (5472, 6)
+    # qwen3-4b decode: B = 8, KVH = 8 (64 rows), Smax 2113, on an H100
+    # whose SMs hold 6 of the tensor-core kernel's CTAs: 3 an SM
+    assert attn_k.plan_splits(2113, 64, H100_SMS, 6) == (384, 6)
+    assert attn_k.plan_splits(32768, 64, H100_SMS, 6) == (5472, 6)
+    # a card that holds 2 an SM plans 2 at every Smax
+    assert attn_k.plan_splits(2113, 64, H100_SMS, 2) == (544, 4)
     # rows beyond the slots: one split each, one CTA per (b, kvh)
-    assert attn_k.plan_splits(2113, 512, slots) == (2144, 1)
-    # the largest ring still fits a CTA's 227 KB
-    assert attn_k.smem_bytes(256, 4, 2) <= 227 * 1024
-    assert attn_k.smem_bytes(256, 2, 8) <= 227 * 1024
-    with pytest.raises(ValueError):
-        attn_k.plan_splits(0, 64, slots)
+    assert attn_k.plan_splits(2113, 512, H100_SMS, 6) == (2144, 1)
+    for bad in ((0, 64, H100_SMS, 6), (2113, 0, H100_SMS, 6),
+                (2113, 64, 0, 6), (2113, 64, H100_SMS, 0)):
+        with pytest.raises(ValueError):
+            attn_k.plan_splits(*bad)
 
 
 @pytest.mark.parametrize("split_len", [32, 64, 96, 128, 256])
@@ -116,17 +115,6 @@ def test_split_merge_empty_splits():
                                rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(got, decode_attention_ref(q, k, v, lens),
                                rtol=2e-5, atol=2e-5)
-
-
-def test_ssd_tc_shared_memory_fits_three_ctas():
-    # mamba2-780m: dh 64, ds 128: 3 CTAs an SM put its 384 (b, h) in one
-    # wave over 132 SMs
-    smem = ssd_k.tc_smem_bytes(64, 128)
-    assert smem == 73984
-    assert 3 * (smem + 1024) <= 228 * 1024
-    assert 3 * H100_SMS >= 8 * 48
-    # the reduced configs (dh 32, ds 16) pad to 32 x 32
-    assert ssd_k.tc_smem_bytes(32, 16) == ssd_k.tc_smem_bytes(32, 32)
 
 
 @pytest.mark.parametrize("T,decay", [(128, 0.1), (100, 0.1), (96, 5.0),

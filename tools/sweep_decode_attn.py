@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Sweep ``decode_attn``'s split count and ring depth on one CUDA device.
+"""Sweep ``decode_attn``'s split count over cache lengths and layouts.
 
     python3 tools/sweep_decode_attn.py
 
-Builds ``decode_attn.cu`` with the ring depth of its tensor-core kernel
-(``kTcStages``) at 2 (as it is), 3, 4 and 6, then times each build
-at qwen3-4b's serving shape (B 8, 32/8 heads, dh 128, bf16, Smax 2113,
-lengths 2049-2112) and at S = 32768, for 2 to 12 splits a (b, KV head),
-beside ``F.scaled_dot_product_attention`` on the same inputs.  Times are
-CUDA events around 100 back-to-back calls, the best of 5 (the kernel's
-launch is called through its C entry, so the host issues a call in a few
-microseconds).  Every output is held against the plain version at the
-bf16 tolerance of ``chip_smoke.py``.  Prints the card and one JSON object.
-Nothing of the port calls this script: it shows how ``plan_splits``'s
-choice (``TARGET_CTAS_PER_SM``) and the ring depth compare with their
-neighbours.
+Builds ``decode_attn.cu`` as the port does, then times it at qwen3-4b's
+serving widths (B 8, 32/8 heads, dh 128, bf16) at Smax 2113 (lengths
+2049-2112, the serving shape) and at Smax 8192, 16384 and 32768 (full
+lengths), for 2 to 8 splits a (b, KV head), beside
+``F.scaled_dot_product_attention`` on the same inputs.  At 16384 and
+32768 it also times the same bytes and heads-per-KV-head with one KV head
+and B 64 (4 query heads): each KV head's rows are then contiguous in the
+cache instead of ``KVH · dh`` elements apart.  Times are CUDA events
+around 100 back-to-back calls, the best of 5 (the kernel is called through
+its C entry, so the host issues a call in a few microseconds).  Every
+output is held against the plain version at the bf16 tolerance of
+``chip_smoke.py``.  Prints the card and one JSON object with, per case,
+the split count ``plan_splits`` picks.  Nothing of the port calls this
+script: it shows how that choice compares with its neighbours, and how
+the layout moves the streaming rate.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import pathlib
 import subprocess
@@ -30,30 +32,16 @@ import torch.nn.functional as F
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn import kernel as K  # noqa: E402
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref  # noqa: E402
 
-SOURCE = ROOT / "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
-DEPTHS = (2, 3, 4, 6)
-SPLITS = range(2, 13)
+#: (B, KVH, Smax): qwen3-4b's B and KV heads, then one KV head over the
+#: same bytes
+CASES = ((8, 8, 2113), (8, 8, 8192), (8, 8, 16384), (8, 8, 32768),
+         (64, 1, 16384), (64, 1, 32768))
+G = 4
+SPLITS = range(2, 9)
 TOL = dict(rtol=2 ** -7, atol=1e-4)
-
-
-def build(depth: int) -> ctypes.CDLL:
-    text = SOURCE.read_text()
-    marker = "constexpr int kTcStages = 2;"
-    if marker not in text:
-        raise RuntimeError("kTcStages of decode_attn.cu changed: update the "
-                           "sweep")
-    path = ROOT / "build" / "sweep" / f"decode_attn_stages{depth}.cu"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(text.replace(marker, f"constexpr int kTcStages = {depth};"))
-    lib = _build.load_library(path).lib
-    lib.decode_attn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 \
-        + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    lib.decode_attn.restype = ctypes.c_int
-    return lib
 
 
 def best_ms(fn, reps: int = 100) -> float:
@@ -101,18 +89,19 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    libs = {d: build(d) for d in DEPTHS}
+    lib = K.build().lib
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {}
-    for S in (2113, 32768):
-        lengths = (torch.randint(2049, 2113, (8,), generator=gen,
+    for B, KVH, S in CASES:
+        lengths = (torch.randint(2049, 2113, (B,), generator=gen,
                                  device="cuda", dtype=torch.int32)
-                   if S == 2113 else torch.full((8,), S, device="cuda",
+                   if S == 2113 else torch.full((B,), S, device="cuda",
                                                 dtype=torch.int32))
-        q = torch.randn((8, 32, 128), generator=gen, device="cuda").bfloat16()
-        k = torch.randn((8, S, 8, 128), generator=gen,
+        q = torch.randn((B, KVH * G, 128), generator=gen,
                         device="cuda").bfloat16()
-        v = torch.randn((8, S, 8, 128), generator=gen,
+        k = torch.randn((B, S, KVH, 128), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((B, S, KVH, 128), generator=gen,
                         device="cuda").bfloat16()
         want = decode_attention_ref(q, k, v, lengths).float()
         mask = (torch.arange(S, device="cuda")[None, :]
@@ -123,18 +112,17 @@ def main() -> int:
                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True)
         row = {"sdpa_ms": best_ms(sdpa),
-               "plan": K.plan(q, k), "ms": {}}
-        for depth in DEPTHS:
-            for nsplit in SPLITS:
-                per = -(-S // nsplit)
-                split_len = -(-per // K.TILE) * K.TILE
-                call, out = caller(libs[depth], q, k, v, lengths, split_len)
-                call()
-                torch.testing.assert_close(out.float(), want, **TOL)
-                row["ms"][f"stages{depth}_splits{-(-S // split_len)}"] = \
-                    best_ms(call)
+               "planned_splits": K.plan(q, k)["nsplit"], "ms": {}}
+        for nsplit in SPLITS:
+            per = -(-S // nsplit)
+            split_len = -(-per // K.TILE) * K.TILE
+            call, out = caller(lib, q, k, v, lengths, split_len)
+            call()
+            torch.testing.assert_close(out.float(), want, **TOL)
+            row["ms"][f"splits{-(-S // split_len)}"] = best_ms(call)
         row["sdpa_ms_again"] = best_ms(sdpa)
-        result[S] = row
+        result[f"B{B}_KVH{KVH}_S{S}"] = row
+        del q, k, v, want, mask
     print(json.dumps(result))
     return 0
 
