@@ -11,7 +11,10 @@ the script exit non-zero after it has printed what it measured):
    once;
 2. hold ``bsr_spmv`` against its plain PyTorch version on the card, for
    each semiring, at bm = 128 on random layouts with ELL padding slots:
-   bitwise for (min,+) and (or,and), rtol=1e-5 for (+,×);
+   bitwise for (min,+) and (or,and), rtol=1e-5 for (+,×); 2b: the same
+   for its bfloat16 and float16 instances, (+,×) inside the interval any
+   float32 order of the slot sums admits (``plus_times_bounds``, bitwise
+   where no slot sum lies near a rounding boundary);
 3. drive the graph path through the port's CLI entry: ``graph500:16``,
    WindGP on the default cluster (3 super + 6 normal machines), PageRank
    for 20 supersteps on the ``pallas`` backend (the kernel), on ``cuda``.
@@ -20,7 +23,23 @@ the script exit non-zero after it has printed what it measured):
    1e-5 relative;
 4. time ``bsr_spmv``, its plain version and a library yardstick on the
    graph path's layout, and the superstep of both backends; then free the
-   graph path's 37 GB of blocks;
+   graph path's 37 GB of blocks.  On the same runtime, one 37.2 GB
+   float32 layout at a time: 4b. SSSP, BFS (from the hub vertex) and CC
+   through the ``pallas`` route, stepwise and fused (chunk 8, CUDA
+   graphs), bitwise against ``scatter`` and the numpy/scipy oracles,
+   fused equal to stepwise, with superstep times, walls and launches
+   (a fused run's launches, the graph replays' and the predicated tail's
+   included, read from the profiler's trace of that run); 4c. SSSP on
+   ``scatter`` with ``frontier_cap`` at the run's largest frontier,
+   bitwise against the dense run; 4d. PageRank with bfloat16 messages
+   through the CLI entry (``--fused --tol 1e-7``), then float16, each
+   within 1e-4·max(pr) of the same run with the kernel's plain version and
+   against float32 ``scatter`` within 1e-2·max(pr) (bfloat16) or
+   5e-2·max(pr) (float16), launches from the run's trace; the 16-bit
+   kernel held on its 18.6 GB layout inside ``plus_times_bounds``, where
+   two planted faults must fail the hold, and timed;
+   4e. ``triangle_count`` against the oracle at ``rmat:15``
+   (at ``graph500:16`` nearly every edge takes the host fallback);
 5. hold ``decode_attn`` and ``ssd`` against their plain versions in
    float32 and bfloat16, on edge inputs: ``decode_attn`` at the serving
    batch and widths, so with the main path's split plan, ragged lengths on
@@ -86,6 +105,25 @@ SSD_SPLIT_PASSES = 2
 GRAPH = "graph500:16"
 ITERS = 20
 BM = 128
+SPARSE_ITERS = 30            # the sparse apps' default budget
+CHUNK = 8                    # the fused runner's default chunk
+# bf16/f16 PageRank (phase 4d), the CLI's --tol and two holds relative
+# to max(pr).  The sharp one: the run against the same run with the
+# kernel's plain version, which differ only where a slot sum lies near a
+# rounding boundary; 1e-4 lies far below either dtype's gap from float32
+# (0.81 % and 2.6 % of max(pr) on an H100, PERF.md), so a kernel that
+# ignored its rounding contract fails it.  The coarse one, against float32
+# scatter: bfloat16 within the reference's own 1e-2
+# (tests/test_bsp_fused.py), here relative; float16 within 5e-2, since
+# graph500:16's ranks (mean 1/V = 1.5e-5) and messages lie below float16's
+# smallest normal (6.1e-5), where it keeps fewer bits than bfloat16.  An
+# all-zero vector is 1.0 away; a run equal to float32 fails too.
+PR_LOW_TOL = 1e-7
+PR_LOW_PLAIN_REL = 1e-4
+PR_LOW_VS_F32_REL = {"bfloat16": 1e-2, "float16": 5e-2}
+# triangle counting (phase 4e): the reference's ELL bound, and the graph
+TRI_MAX_DEGREE = 64
+TRI_GRAPH = "rmat:15"
 
 # the LM serving traffic: 8 prompts of 2048 tokens, 64 new tokens each
 BATCH, PROMPT, NEW = 8, 2048, 64
@@ -203,18 +241,25 @@ TRACE_ARGS = ("grid", "block", "registers per thread", "shared memory",
               "est. achieved occupancy %")
 
 
-def traced_launches(prof, key: str) -> dict:
-    """The launches of device kernels whose name holds ``key`` in a
-    profile, as its trace records them: how many, and the attributes of
-    ``TRACE_ARGS`` they share (an attribute that differs between launches
-    fails a check; one the trace lacks is left out)."""
+def trace_kernels(prof) -> list:
+    """The device kernel events of a profile's trace, one per launch
+    (CUDA-graph replays included)."""
     path = ROOT / "build" / "chip_smoke_trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     trace = json.loads(path.read_text())
     path.unlink()
-    launches = [e.get("args", {}) for e in trace.get("traceEvents", [])
-                if e.get("cat") == "kernel" and key in e.get("name", "")]
+    return [e for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel"]
+
+
+def traced_launches(prof, key: str) -> dict:
+    """The launches of device kernels whose name holds ``key`` in a
+    profile, as its trace records them: how many, and the attributes of
+    ``TRACE_ARGS`` they share (an attribute that differs between launches
+    fails a check; one the trace lacks is left out)."""
+    launches = [e.get("args", {}) for e in trace_kernels(prof)
+                if key in e.get("name", "")]
     out = {"traced": len(launches)}
     for arg in TRACE_ARGS:
         values = {json.dumps(a[arg]) for a in launches if arg in a}
@@ -308,9 +353,9 @@ def reset_launches():
 # phases 2-4: the graph path
 # ---------------------------------------------------------------------------
 
-def graph_path(gen, lines: list) -> dict:
-    """Phases 2-4; returns the kernel table entry of ``bsr_spmv``.  Every
-    tensor of the path is local, so it is freed on return."""
+def graph_path(gen, lines: list):
+    """Phases 2-4; returns the kernel table entry of ``bsr_spmv`` and the
+    CLI run (graph, runtime), its layout released."""
     from repro_torch.bsp import build_pagerank, pagerank, ref
     from repro_torch.kernels.bsr_spmv import bsr_spmv_ref
     from repro_torch.launch import partition as cli
@@ -414,7 +459,8 @@ def graph_path(gen, lines: list) -> dict:
                                      "max_abs_vs_oracle": d_oracle,
                                      "mass_rel": mass_rel},
                   "semiring_max_abs_err": semiring_err})
-    return {
+    rt.clear_bsr_cache()
+    return res, {
         "name": "bsr_spmv", "route": "cuda",
         "source": "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu",
         "replaces": "src/repro/kernels/bsr_spmv/kernel.py:70",
@@ -423,7 +469,490 @@ def graph_path(gen, lines: list) -> dict:
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
-        "library": "torch.matmul (p*R*K,bm,bm)@(p*R*K,bm,1) + sum over K"}
+        "library": "torch.matmul (p*R*K,bm,bm)@(p*R*K,bm,1) + sum over K",
+        "dtype": "float32"}
+
+
+# ---------------------------------------------------------------------------
+# phases 2b and 4b-4f: 16-bit kernel, sparse apps, frontier compaction,
+# low-precision PageRank, triangles
+# ---------------------------------------------------------------------------
+
+def within_bounds(y, lo, hi) -> bool:
+    return bool(((lo <= y) & (y <= hi)).all())
+
+
+def hold_16bit(got, want, cols, blocks, x, sr: str, what: str) -> dict:
+    """Hold a 16-bit instance against its plain version: bitwise for
+    (min,+) and (or,and); for (+,×) both inside ``plus_times_bounds``.
+    Returns the largest absolute difference over finite values and, for
+    (+,×), how many outputs the bounds leave open (lo < hi)."""
+    from repro_torch.kernels.bsr_spmv import plus_times_bounds
+    out = {}
+    if sr == "plus_times":
+        lo, hi = plus_times_bounds(cols, blocks, x)
+        check(within_bounds(got, lo, hi), f"{what}: kernel outside bounds")
+        check(within_bounds(want, lo, hi), f"{what}: plain outside bounds")
+        out["open_outputs"] = int((lo != hi).sum())
+    else:
+        check(torch.equal(got, want), f"{what}: kernel != plain bitwise")
+    fin = torch.isfinite(want)
+    out["max_abs_err"] = float((got.float()[fin] - want.float()[fin])
+                               .abs().max())
+    return out
+
+
+def hold_16bit_kernel(gen) -> dict:
+    """Phase 2b: the bf16 and f16 instances of ``bsr_spmv`` against their
+    plain versions on random layouts at bm = 128, per semiring."""
+    from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        for sr in ("plus_times", "min_plus", "or_and"):
+            cols, blocks, x = random_layout(gen, sr)
+            blocks, x = blocks.to(dtype), x.to(dtype)
+            got = bsr_spmv(cols, blocks, x, sr)
+            want = bsr_spmv_ref(cols, blocks, x, sr)
+            torch.cuda.synchronize()
+            tag = f"{sr}_{str(dtype).split('.')[-1]}"
+            errs[tag] = hold_16bit(got, want, cols, blocks, x, sr,
+                                   tag)["max_abs_err"]
+    return errs
+
+
+def counted(fn):
+    """``fn()`` with ``bsr_spmv``'s count set to 0 just before; returns
+    (result, launches, wall seconds)."""
+    bsr_spmv = reset_launches()[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, bsr_spmv.launches, time.perf_counter() - t0
+
+
+#: the template argument of each storage type in the kernel's name
+KERNEL_TYPE = {"float32": ", float, ", "bfloat16": ", __nv_bfloat16, ",
+               "float16": ", __half, "}
+
+
+def fused_traced(fn, dtype: str, what: str):
+    """A fused run ``fn()`` under torch.profiler (device activity, spin
+    kernels padding the window), with ``bsr_spmv``'s count set to 0 just
+    before.  The wrapper counts its eager launches; a call under a CUDA
+    graph's capture launches nothing, so the graph replays' launches are
+    read from the run's trace, which records every launch.  Returns
+    (result, the ``bsr_spmv`` kernel names the trace shows, eager
+    launches, wall seconds of ``fn()``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def spin():
+        for _ in range(8):
+            torch.cuda._sleep(10_000)
+        torch.cuda.synchronize()
+    bsr_spmv = reset_launches()[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spin()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spin()
+    names = [e.get("name", "") for e in trace_kernels(prof)
+             if "bsr_spmv_kernel" in e.get("name", "")]
+    check(all(KERNEL_TYPE[dtype] in n for n in names),
+          f"{what}: the trace shows other bsr_spmv instances than "
+          f"{dtype}'s: {sorted(set(names))}")
+    return out, names, bsr_spmv.launches, wall
+
+
+def fused_counts(names: list, eager: int, steps_run: int, what: str) -> dict:
+    """The launches of a fused run that ran ``steps_run`` supersteps: the
+    traced ones, the eager ones (the warm-up step) and those of the graph
+    replays, whose tail past ``steps_run`` is the predicated tail (less
+    than one chunk)."""
+    graph = len(names) - eager
+    check(eager == 1, f"{what}: {eager} eager launches, expected the one "
+          f"warm-up step")
+    check(steps_run <= graph < steps_run + CHUNK,
+          f"{what}: the trace shows {graph} graph launches for {steps_run} "
+          f"supersteps run in chunks of {CHUNK}")
+    return {"steps_run": steps_run, "traced": len(names), "eager": eager,
+            "graph": graph, "predicated_tail": graph - steps_run}
+
+
+def cc_oracle(g) -> np.ndarray:
+    """Min vertex id of each vertex's component (+inf for an isolated
+    vertex, which no partition holds), by scipy."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    n = g.num_vertices
+    adj = sp.coo_matrix((np.ones(g.num_edges), (g.edges[:, 0],
+                                                g.edges[:, 1])),
+                        shape=(n, n))
+    _, comp = connected_components(adj, directed=False)
+    low = np.full(comp.max() + 1, n)
+    np.minimum.at(low, comp, np.arange(n))
+    out = low[comp].astype(np.float64)
+    out[g.degree() == 0] = np.inf
+    return out
+
+
+def hub(g) -> int:
+    """The source of SSSP and BFS: the vertex of highest degree (an
+    isolated vertex, which no machine holds, would end the run at once)."""
+    return int(np.argmax(g.degree()))
+
+
+def sparse_apps(g, rt, lines: list) -> dict:
+    """Phase 4b: SSSP, BFS and CC at ``graph500:16`` through the pallas
+    route, stepwise and fused, against ``scatter`` and the oracles; one
+    float32 layout (37.2 GB) at a time."""
+    from repro_torch.bsp import (bfs, build_app, connected_components,
+                                 make_fused_runner, ref, run_bsp, sssp)
+    source = hub(g)
+    apps = {"sssp": (sssp, {"source": source}),
+            "bfs": (bfs, {"source": source}),
+            "cc": (connected_components, {})}
+    oracles = {"sssp": lambda: ref.sssp(g, source, np.ones(g.num_edges),
+                                        SPARSE_ITERS),
+               "bfs": lambda: ref.bfs(g, source, SPARSE_ITERS),
+               "cc": lambda: cc_oracle(g)}
+    out = {}
+    for app, (fn, kw) in apps.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        spec = build_app(rt, app, backend="pallas", block_size=BM, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        pallas = dict(backend="pallas", block_size=BM, **kw)
+        (res, acts), step_launches, step_s = counted(
+            lambda: fn(rt, num_iters=SPARSE_ITERS, **pallas))
+        check(step_launches == SPARSE_ITERS, f"{app}: stepwise launched "
+              f"bsr_spmv {step_launches} times in {SPARSE_ITERS} supersteps")
+        (res_f, acts_f), names, eager, fused_s = fused_traced(
+            lambda: fn(rt, num_iters=SPARSE_ITERS, fused=True, chunk=CHUNK,
+                       **pallas), "float32", f"{app} fused")
+        steps = len(acts_f)
+        fused = fused_counts(names, eager, steps, f"{app} fused")
+        check(np.array_equal(res_f, res), f"{app}: fused != stepwise")
+        check(np.array_equal(acts_f, acts[:steps])
+              and not acts[steps:].any(),
+              f"{app}: fused actives are not the stepwise prefix")
+        scatter, acts_s = fn(rt, num_iters=SPARSE_ITERS, **kw)
+        check(np.array_equal(res, scatter) and np.array_equal(acts, acts_s),
+              f"{app}: pallas != scatter bitwise")
+        oracle = oracles[app]()
+        check(np.array_equal(res.astype(np.float64), oracle),
+              f"{app}: != the numpy oracle")
+        # CUDA events over one superstep from the initial state (the
+        # pallas superstep streams the whole layout whatever the frontier)
+        step_ms = median_ms(lambda: spec.superstep(spec.state, spec.static),
+                            10)
+        # the fused runner reused: replays only (its graphs exist)
+        runner = make_fused_runner(spec.superstep, spec.static, chunk=CHUNK)
+        runner(spec.state, SPARSE_ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(spec.state, SPARSE_ITERS)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_bsp(spec.superstep, spec.state, spec.static, steps)
+        torch.cuda.synchronize()
+        stepwise_same_s = time.perf_counter() - t0
+        # scatter: stepwise against fused, the same supersteps
+        sc = build_app(rt, app, backend="scatter", **kw)
+        sc_step_ms = median_ms(lambda: sc.superstep(sc.state, sc.static), 10)
+        sc_runner = make_fused_runner(sc.superstep, sc.static, chunk=CHUNK)
+        sc_runner(sc.state, SPARSE_ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc_out, _ = sc_runner(sc.state, SPARSE_ITERS)
+        torch.cuda.synchronize()
+        sc_fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sc_step_out, _ = run_bsp(sc.superstep, sc.state, sc.static, steps)
+        torch.cuda.synchronize()
+        sc_stepwise_s = time.perf_counter() - t0
+        check(all(torch.equal(sc_out[k], sc_step_out[k]) for k in sc_out
+                  if k != "step"), f"{app}: scatter fused != stepwise")
+        peak = torch.cuda.max_memory_allocated()
+        check(peak < torch.cuda.get_device_properties(0).total_memory,
+              f"{app}: peak memory {peak}")
+        out[app] = {
+            "source": source, "supersteps_to_convergence": steps,
+            "actives_per_step": acts_f.sum(axis=1).astype(int).tolist(),
+            "layout_build_s": build_s, "superstep_ms_median": step_ms,
+            "stepwise_s": {"budget": SPARSE_ITERS, "wall": step_s,
+                           "wall_same_steps_as_fused": stepwise_same_s},
+            "fused_s": {"first_call_with_capture_traced": fused_s,
+                        "replay": replay_s},
+            "launches": {"stepwise": step_launches, "fused": fused},
+            "scatter": {"superstep_ms_median": sc_step_ms,
+                        "stepwise_s_same_steps": sc_stepwise_s,
+                        "fused_replay_s": sc_fused_s},
+            "max_memory_allocated_gb": peak / 1e9}
+        log(f"phase 4b: {app} {steps} supersteps, superstep "
+            f"{step_ms:.3f} ms (scatter {sc_step_ms:.3f}), stepwise "
+            f"{stepwise_same_s:.3f}s vs fused replay {replay_s:.3f}s, "
+            f"peak {peak / 1e9:.1f} GB")
+        del spec, runner, sc, sc_runner, sc_out, sc_step_out
+        rt.clear_bsr_cache()
+    torch.cuda.empty_cache()
+    lines.append({"sparse_apps": out})
+    return out
+
+
+def frontier_phase(g, rt, lines: list) -> dict:
+    """Phase 4c: SSSP on ``scatter`` with ``frontier_cap`` = the largest
+    live-vertex count of any machine and superstep (``frontier_entries``
+    over the dense run), bitwise against the dense ``scatter`` run,
+    stepwise and fused, over the supersteps the dense run takes to
+    converge: a compacted superstep costs cap × dmax whatever the
+    frontier, and the hubs make dmax large here."""
+    from repro_torch.bsp import (build_app, frontier_entries, run_bsp,
+                                 run_bsp_fused)
+    dense = build_app(rt, "sssp", backend="scatter", source=hub(g))
+    state, live = dense.state, []
+    for _ in range(SPARSE_ITERS):
+        live.append(frontier_entries(rt, state["changed"].cpu().numpy()))
+        state, act = dense.superstep(state, dense.static)
+        if int(act.sum()) == 0:
+            break
+    cap, steps = int(np.max(live)), len(live)
+    want, want_acts = run_bsp(dense.superstep, dense.state, dense.static,
+                              steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec = build_app(rt, "sssp", backend="scatter", source=hub(g),
+                     frontier_cap=cap)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    got, acts = run_bsp(spec.superstep, spec.state, spec.static, steps)
+    fused, acts_f = run_bsp_fused(spec.superstep, spec.state, spec.static,
+                                  steps, chunk=CHUNK)
+    for k in want:
+        check(torch.equal(got[k], want[k]), f"frontier_cap stepwise {k}")
+        check(torch.equal(fused[k], want[k]), f"frontier_cap fused {k}")
+    check(np.array_equal(acts, want_acts)
+          and np.array_equal(acts_f, want_acts[:len(acts_f)]),
+          "frontier_cap actives")
+    step_ms = median_ms(lambda: spec.superstep(spec.state, spec.static), 10)
+    dense_ms = median_ms(lambda: dense.superstep(dense.state, dense.static),
+                         10)
+    peak = torch.cuda.max_memory_allocated()
+    ell = spec.static["eb_fr_dst"]
+    out = {"frontier_cap": cap, "vmax": rt.vmax, "dmax": ell.shape[-1],
+           "ell_gb": 2 * ell.numel() * 4 / 1e9, "prepare_s": prepare_s,
+           "supersteps": len(acts_f),
+           "superstep_ms_median_first_step": step_ms,
+           "dense_superstep_ms_median_first_step": dense_ms,
+           "max_memory_allocated_gb": peak / 1e9}
+    log(f"phase 4c: frontier_cap {cap} bitwise vs dense scatter, "
+        f"superstep {step_ms:.3f} ms (dense {dense_ms:.3f}), peak "
+        f"{peak / 1e9:.1f} GB")
+    del spec, dense
+    torch.cuda.empty_cache()
+    lines.append({"frontier": out})
+    return out
+
+
+def low_precision_pagerank(gen, lines: list) -> list:
+    """Phase 4d: PageRank with bfloat16 messages through the CLI entry
+    (``--backend pallas --message-dtype bfloat16 --fused --tol 1e-7``),
+    then float16 on the same runtime; each against the same run with the
+    kernel's plain version, against float32 ``scatter``, and stepwise.
+    The 16-bit kernel is held and timed on its layout.  Returns the kernel
+    table rows of the two instances."""
+    from unittest import mock
+
+    from repro_torch.bsp import backends, build_pagerank, make_fused_runner
+    from repro_torch.bsp import pagerank
+    from repro_torch.kernels.bsr_spmv import (bsr_spmv, bsr_spmv_ref,
+                                              plus_times_bounds)
+    from repro_torch.launch import partition as cli
+    rows, out, rt = [], {}, None
+    for dtype in ("bfloat16", "float16"):
+        dt = getattr(torch, dtype)
+        what = f"pagerank {dtype}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if dtype == "bfloat16":
+            res, names, eager, fused_s = fused_traced(lambda: cli.run([
+                "--graph", GRAPH, "--method", "windgp", "--pagerank",
+                "--pagerank-iters", str(ITERS), "--backend", "pallas",
+                "--message-dtype", dtype, "--fused", "--tol",
+                str(PR_LOW_TOL), "--device", "cuda"]), dtype, what)
+            pr, steps = res.pagerank, len(res.actives)
+            rt = res.runtime
+        else:                           # the CLI run's runtime
+            (pr, acts), names, eager, fused_s = fused_traced(
+                lambda: pagerank(rt, num_iters=ITERS, backend="pallas",
+                                 block_size=BM, message_dtype=dtype,
+                                 tol=PR_LOW_TOL), dtype, what)
+            steps = len(acts)
+        fused = fused_counts(names, eager, steps, f"{what} fused")
+        peak = torch.cuda.max_memory_allocated()
+        check(pr.shape == (rt.num_vertices,) and bool(np.isfinite(pr).all()),
+              f"{what}: not a finite (V,) vector")
+        pr32, _ = pagerank(rt, num_iters=steps, backend="scatter")
+        scale = float(pr32.max())
+        err = float(np.abs(pr - pr32).max())
+        check(0 < err <= PR_LOW_VS_F32_REL[dtype] * scale,
+              f"{what} vs float32 scatter {err / scale} of max(pr), not in "
+              f"(0, {PR_LOW_VS_F32_REL[dtype]}]")
+        # the same run with the kernel's plain version in its place
+        with mock.patch.object(backends, "bsr_spmv", bsr_spmv_ref):
+            pr_plain, _ = pagerank(rt, num_iters=steps, backend="pallas",
+                                   block_size=BM, message_dtype=dtype)
+        d_plain = float(np.abs(pr - pr_plain).max())
+        check(d_plain <= PR_LOW_PLAIN_REL * scale, f"{what} vs the plain "
+              f"version's run {d_plain / scale} of max(pr) > "
+              f"{PR_LOW_PLAIN_REL}")
+        (pr_s, _), step_launches, step_s = counted(
+            lambda: pagerank(rt, num_iters=steps, backend="pallas",
+                             block_size=BM, message_dtype=dtype))
+        check(step_launches == steps, f"{what}: stepwise launched "
+              f"{step_launches} times in {steps} supersteps")
+        # the reference's fused-vs-stepwise bound for PageRank
+        d_fused = float(np.abs(pr - pr_s).max())
+        check(d_fused <= 1e-6, f"{what}: fused vs stepwise {d_fused}")
+        # the kernel on this layout: held inside its bounds, where planted
+        # faults must fail; profiler time a launch, beside its plain
+        # version, a library call in the dtype and its bound
+        spec = build_pagerank(rt, backend="pallas", block_size=BM,
+                              message_dtype=dtype)
+        bsr = rt.local_bsr(block_size=BM, semiring="plus_times",
+                           weights="weight", dtype=dtype)
+        p, R, K = bsr.cols.shape
+        x = torch.rand((p, R * BM), generator=gen, device="cuda").to(dt)
+        y = bsr_spmv(bsr.cols, bsr.blocks, x)
+        y_plain = bsr_spmv_ref(bsr.cols, bsr.blocks, x)
+        hold = hold_16bit(y, y_plain, bsr.cols, bsr.blocks, x, "plus_times",
+                          f"bsr_spmv {dtype} layout")
+        lo, hi = plus_times_bounds(bsr.cols, bsr.blocks, x)
+        faults = {
+            "first_slot_skipped": bsr_spmv_ref(bsr.cols[..., 1:],
+                                               bsr.blocks[:, :, 1:], x),
+            "two_units_high": y * (1 + 2 * torch.finfo(dt).eps)}
+        for fault, bad in faults.items():
+            check(not within_bounds(bad, lo, hi),
+                  f"bsr_spmv {dtype} layout: the planted fault {fault} "
+                  f"passed the hold")
+        hold["planted_faults_rejected"] = sorted(faults)
+        del lo, hi, faults, bad
+        times = timing(lambda: bsr_spmv(bsr.cols, bsr.blocks, x), 10,
+                       bsr_spmv, "bsr_spmv_kernel")
+        # the same bytes through the (min,+) instance, which folds in each
+        # lane and runs no per-slot shuffle tree: what that tree costs
+        min_plus_ms = timing(lambda: bsr_spmv(bsr.cols, bsr.blocks, x,
+                                              "min_plus"), 10, bsr_spmv,
+                             "bsr_spmv_kernel")["ms"]
+        plain_ms = device_ms(lambda: bsr_spmv_ref(bsr.cols, bsr.blocks, x),
+                             3)
+        xg = x.view(p, R, BM)[torch.arange(p, device="cuda")[:, None, None],
+                              bsr.cols.long()]
+        flat_blocks = bsr.blocks.view(-1, BM, BM)
+
+        def library():
+            return torch.matmul(flat_blocks, xg.view(-1, BM, 1)).view(
+                p, R, K, BM).sum(dim=2)
+        library_ms = device_ms(library, 10)
+        nbytes = (bsr.blocks.numel() * bsr.blocks.element_size()
+                  + 4 * bsr.cols.numel()
+                  + (x.numel() + y.numel()) * x.element_size())
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # the kernel widens to float32: its products are float32 FMAs
+        ops_ms = 2 * bsr.blocks.numel() / F32_FLOPS * 1e3
+        # the fused runner reused: replays only (its graphs exist)
+        runner = make_fused_runner(spec.superstep, spec.static, chunk=CHUNK,
+                                   tol=PR_LOW_TOL)
+        runner(spec.state, ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(spec.state, ITERS)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        out[dtype] = {"steps_run": steps, "tol": PR_LOW_TOL,
+                      "max_abs_vs_float32_scatter": err,
+                      "max_abs_vs_float32_scatter_over_max_pr": err / scale,
+                      "bound_over_max_pr": PR_LOW_VS_F32_REL[dtype],
+                      "max_abs_vs_plain_kernel_run_over_max_pr":
+                          d_plain / scale,
+                      "plain_bound_over_max_pr": PR_LOW_PLAIN_REL,
+                      "fused_vs_stepwise_max_abs": d_fused,
+                      "blocks_gb": bsr.blocks.numel()
+                      * bsr.blocks.element_size() / 1e9,
+                      "max_memory_allocated_gb_main_path": peak / 1e9,
+                      "fused_s_first_call_traced": fused_s,
+                      "fused_replay_s": replay_s,
+                      "stepwise_s_same_steps": step_s,
+                      "layout_hold": hold,
+                      "trace_kernel_name": sorted(set(names))[:1]}
+        rows.append({
+            "name": f"bsr_spmv_{'bf16' if dtype == 'bfloat16' else 'f16'}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu",
+            "replaces": "src/repro/kernels/bsr_spmv/kernel.py:70",
+            "dtype": dtype, "launches": fused["traced"],
+            "launches_fused": fused, "launches_stepwise": step_launches,
+            "max_abs_err": hold["max_abs_err"], "ms": times["ms"],
+            "kernel_ms": times["ms"], "launch": times["launch"],
+            "ms_min_plus_same_bytes": min_plus_ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+            "library": f"torch.matmul in {dtype} (p*R*K,bm,bm)@(p*R*K,bm,1) "
+                       f"+ sum over K"})
+        log(f"phase 4d: {what} {steps} steps, vs float32 "
+            f"{err / scale:.3g}·max(pr), vs plain run "
+            f"{d_plain / scale:.3g}·max(pr); bsr_spmv {times['ms']:.3f} ms "
+            f"(bound {max(bytes_ms, ops_ms):.3f}, library {library_ms:.3f}), "
+            f"peak {peak / 1e9:.1f} GB")
+        del spec, bsr, runner, x, y, y_plain, xg, flat_blocks
+        rt.clear_bsr_cache()
+    torch.cuda.empty_cache()
+    lines.append({"low_precision_pagerank": out})
+    return rows
+
+
+def triangle_phase(g, lines: list) -> dict:
+    """Phase 4e: ``triangle_count`` against ``ref.triangle_count``.  Its
+    hub fallback is host numpy, one sorted intersection per edge with an
+    endpoint above the ELL bound, as in the reference; at ``graph500:16``
+    nearly every edge has one, so the count runs at ``TRI_GRAPH``."""
+    from repro_torch.bsp import PartitionRuntime, ref, triangle_count
+    from repro_torch.core import scaled_paper_cluster, windgp
+    from repro_torch.launch.partition import load_graph
+    deg = g.degree()
+    hub_edges = int(((deg[g.edges[:, 0]] > TRI_MAX_DEGREE)
+                     | (deg[g.edges[:, 1]] > TRI_MAX_DEGREE)).sum())
+    tg = load_graph(TRI_GRAPH)
+    cl = scaled_paper_cluster(3, 6, tg.num_edges, slack=1.8)
+    rt = PartitionRuntime.create(tg, assign=windgp(tg, cl).assign,
+                                 cluster=cl, device="cuda")
+    t0 = time.perf_counter()
+    got = triangle_count(rt, tg, max_degree=TRI_MAX_DEGREE)
+    port_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ref.triangle_count(tg)
+    oracle_s = time.perf_counter() - t0
+    check(got == want, f"triangle_count {got} != oracle {want}")
+    tdeg = tg.degree()
+    out = {"graph": TRI_GRAPH, "V": tg.num_vertices, "E": tg.num_edges,
+           "triangles": got, "port_s": port_s, "oracle_s": oracle_s,
+           "hub_edges": int(((tdeg[tg.edges[:, 0]] > TRI_MAX_DEGREE)
+                             | (tdeg[tg.edges[:, 1]] > TRI_MAX_DEGREE)).sum()),
+           "why_not_" + GRAPH: f"{hub_edges} of its {g.num_edges} edges have "
+           f"an endpoint of degree > {TRI_MAX_DEGREE} and take the per-edge "
+           f"host fallback"}
+    log(f"phase 4e: triangle_count {got} at {TRI_GRAPH} in {port_s:.2f}s "
+        f"(oracle {oracle_s:.2f}s)")
+    lines.append({"triangles": out})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -898,7 +1427,21 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     lines: list = []
-    spmv_entry = graph_path(gen, lines)
+    errs16 = hold_16bit_kernel(gen)
+    log(f"phase 2b: bsr_spmv bf16/f16 vs plain per semiring, max_abs_err "
+        f"{errs16}")
+    lines.append({"bsr_spmv_16bit_max_abs_err": errs16})
+    res, spmv_entry = graph_path(gen, lines)
+    torch.cuda.empty_cache()
+    apps = sparse_apps(res.graph, res.runtime, lines)
+    spmv_entry["launches_sparse_apps"] = {
+        app: a["launches"] for app, a in apps.items()}
+    frontier_phase(res.graph, res.runtime, lines)
+    graph = res.graph
+    del res
+    torch.cuda.empty_cache()
+    spmv_16bit = low_precision_pagerank(gen, lines)
+    triangle_phase(graph, lines)
     torch.cuda.empty_cache()
 
     # -- phase 5 ----------------------------------------------------------
@@ -939,7 +1482,7 @@ def main() -> int:
 
     for line in lines:
         print(json.dumps(line))
-    print(json.dumps({"kernels": [spmv_entry, {
+    print(json.dumps({"kernels": [spmv_entry, *spmv_16bit, {
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/kernel.py:59",

@@ -5,12 +5,21 @@ synchronization is a fixed-shape reduction over the replicated-vertex
 table, whose size shrinks with partition quality.
 """
 from .partition_runtime import LocalBSR, PartitionRuntime
-from .backends import BACKENDS, MESSAGE_DTYPES, EdgeBackend, get_backend
-from .engine import exchange, make_step, run_bsp
-from .apps import AppSpec, RunOptions, build_pagerank, pagerank
+from .backends import (BACKENDS, MESSAGE_DTYPES, EdgeBackend, get_backend,
+                       frontier_entries)
+from .engine import exchange, make_fused_runner, make_step, run_bsp, \
+    run_bsp_fused
+from .apps import (APP_BUILDERS, MONOTONE_APPS, AppSpec, RunOptions,
+                   bfs, build_app, build_pagerank, connected_components,
+                   pagerank, sssp, triangle_count)
 from . import ref
+from .simulate import simulate_runtime, simulate_superstep_times
 
 __all__ = ["PartitionRuntime", "LocalBSR",
            "BACKENDS", "MESSAGE_DTYPES", "EdgeBackend", "get_backend",
-           "exchange", "make_step", "run_bsp",
-           "AppSpec", "RunOptions", "build_pagerank", "pagerank", "ref"]
+           "frontier_entries", "exchange", "make_fused_runner", "make_step",
+           "run_bsp", "run_bsp_fused",
+           "pagerank", "sssp", "bfs", "triangle_count",
+           "connected_components", "build_app", "build_pagerank", "AppSpec",
+           "APP_BUILDERS", "RunOptions", "MONOTONE_APPS",
+           "ref", "simulate_superstep_times", "simulate_runtime"]

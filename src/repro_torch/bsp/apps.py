@@ -1,14 +1,29 @@
 """Distributed graph algorithms on the BSP engine.
 
+The paper evaluates dense (PageRank, TriangleCount) and sparse (SSSP, BFS)
+algorithms over its edge partitions; these are the same four, plus
+connected components, written as machine-stacked superstep bodies.
+
 Every superstep's edge work is one semiring SpMV against each machine's
 local adjacency, expressed through a pluggable edge-kernel backend
-(``bsp/backends.py``); PageRank combines under (+, ×) with edge weights.
+(``bsp/backends.py``): PageRank combines under (+, ×) with edge weights,
+SSSP under (min, +), BFS expands its frontier under (or, and), and
+connected components propagates labels under (min, +) with zero weights.
 The replica exchange is fused into the backend combine's epilogue
 (``EdgeBackend.prepare_exchanged``), so a superstep body makes one
 ``combine`` call that already returns post-exchange values.
 
-This package has PageRank; SSSP, BFS, connected components and triangle
-counting are not ported yet.
+The monotone apps (SSSP/CC) carry a changed-vertex mask in their state:
+only vertices whose value improved last superstep send messages; everyone
+else feeds the semiring's no-message value (+inf under (min, +)), whose ⊕
+contribution is the identity.  BFS's frontier (``dist == step``) already
+is that mask.  It is what the ``scatter`` backend's ``frontier_cap``
+compaction keys on.
+
+Every app wrapper runs on either engine runner: the stepwise oracle
+(``run_bsp``, default) or the fused runner (``fused=True`` / ``tol=`` →
+``run_bsp_fused``).  ``options=RunOptions(...)`` carries the shared knobs
+in one validated object; the individual kwargs are the other spelling.
 """
 from __future__ import annotations
 
@@ -19,23 +34,37 @@ import numpy as np
 import torch
 
 from .backends import BACKENDS, MESSAGE_DTYPES, get_backend
-from .engine import run_bsp
+from .engine import run_bsp, run_bsp_fused
 from .partition_runtime import PartitionRuntime
+
+#: apps whose state is monotone under the semiring: they already exit on
+#: an empty changed-set, so PageRank's ``tol`` residual gate does not
+#: apply to them (RunOptions.validate rejects the combination)
+MONOTONE_APPS = ("bfs", "cc", "sssp")
 
 
 @dataclasses.dataclass(frozen=True)
 class RunOptions:
-    """The engine/backend knobs the BSP apps share, validated once.
+    """The engine/backend knobs every BSP app shares, validated once.
 
     * ``backend`` — edge-kernel backend (``bsp/backends.py``).
+    * ``fused`` — run the iteration on the fused runner.
+    * ``tol`` — PageRank residual early exit (implies ``fused``); the
+      monotone apps (:data:`MONOTONE_APPS`) reject it.
+    * ``chunk`` — fused-runner chunk (supersteps per convergence check).
     * ``message_dtype`` — message precision (see ``MESSAGE_DTYPES``).
+    * ``frontier_cap`` — scatter-only frontier compaction width.
     """
 
     backend: str = "scatter"
+    fused: bool = False
+    tol: float | None = None
+    chunk: int = 8
     message_dtype: str = "float32"
+    frontier_cap: int | None = None
 
-    def validate(self) -> "RunOptions":
-        """Raise ``ValueError`` on bad knobs; returns self."""
+    def validate(self, app: str | None = None) -> "RunOptions":
+        """Raise ``ValueError`` on bad knobs / combinations; returns self."""
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown edge-kernel backend "
                              f"{self.backend!r} "
@@ -44,14 +73,32 @@ class RunOptions:
             raise ValueError(f"unknown message_dtype "
                              f"{self.message_dtype!r} (choices: "
                              f"{list(MESSAGE_DTYPES)})")
+        if self.chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {self.chunk}")
+        if self.tol is not None and app in MONOTONE_APPS:
+            raise ValueError(
+                f"tol= is the PageRank residual gate; {app!r} is monotone "
+                f"and already exits on an empty changed-set — valid "
+                f"choices: tol=None here, or tol with app='pagerank' "
+                f"(use fused=True for the fused runner)")
+        if self.frontier_cap is not None and self.backend != "scatter":
+            raise ValueError(
+                f"frontier_cap is a 'scatter'-backend knob (frontier "
+                f"compaction); backend {self.backend!r} does not take it "
+                f"— valid choices: backend='scatter', or frontier_cap="
+                f"None")
         return self
 
     def backend_opts(self) -> dict:
         """The knobs that flow to ``get_backend`` for this run."""
-        return {"message_dtype": self.message_dtype}
+        opts = {"message_dtype": self.message_dtype}
+        if self.frontier_cap is not None:
+            opts["frontier_cap"] = self.frontier_cap
+        return opts
 
 
-def _options(options: RunOptions | None, backend, backend_opts: dict):
+def _options(options: RunOptions | None, app: str, backend, fused, tol,
+             chunk, backend_opts: dict):
     """Resolve ``options=`` vs the per-kwarg spelling.
 
     Returns ``(RunOptions, extra_backend_opts)``; the extras are
@@ -60,8 +107,12 @@ def _options(options: RunOptions | None, backend, backend_opts: dict):
     """
     extra = dict(backend_opts)
     if options is not None:
-        mixed = ["backend"] if backend != "scatter" else []
-        mixed += ["message_dtype"] if "message_dtype" in extra else []
+        mixed = [name for name, val, default in
+                 (("backend", backend, "scatter"), ("fused", fused, False),
+                  ("tol", tol, None), ("chunk", chunk, 8))
+                 if val != default]
+        mixed += sorted(k for k in ("message_dtype", "frontier_cap")
+                        if k in extra)
         if mixed:
             raise ValueError(
                 f"got both options=RunOptions(...) and the individual "
@@ -69,9 +120,11 @@ def _options(options: RunOptions | None, backend, backend_opts: dict):
                 f"the other")
     else:
         options = RunOptions(
-            backend=backend,
-            message_dtype=extra.pop("message_dtype", "float32"))
-    return options.validate(), extra
+            backend=backend, fused=fused, tol=tol, chunk=chunk,
+            message_dtype=extra.pop("message_dtype", "float32"),
+            frontier_cap=extra.pop("frontier_cap", None))
+    options.validate(app)
+    return options, extra
 
 
 def _static_tree(rt: PartitionRuntime) -> dict:
@@ -114,6 +167,14 @@ def _resolve(rt, backend, semiring: str, weights: str, exchange_mode: str,
     return eb, {**_static_tree(rt), **extras}, combine
 
 
+def _run(spec: "AppSpec", num_steps: int, opts: RunOptions):
+    """Dispatch an :class:`AppSpec` to the stepwise or fused runner."""
+    if opts.fused or opts.tol is not None:
+        return run_bsp_fused(spec.superstep, spec.state, spec.static,
+                             num_steps, chunk=opts.chunk, tol=opts.tol)
+    return run_bsp(spec.superstep, spec.state, spec.static, num_steps)
+
+
 def build_pagerank(rt: PartitionRuntime, damping: float = 0.85, *,
                    backend="scatter", init: np.ndarray | None = None,
                    **backend_opts) -> AppSpec:
@@ -150,16 +211,222 @@ def build_pagerank(rt: PartitionRuntime, damping: float = 0.85, *,
 def pagerank(rt: PartitionRuntime, num_iters: int = 20,
              damping: float = 0.85, *, options: RunOptions | None = None,
              backend="scatter", init: np.ndarray | None = None,
-             **backend_opts):
+             fused=False, tol=None, chunk=8, **backend_opts):
     """Returns ((V,) global PageRank, (steps, p) actives) after
     ``num_iters`` supersteps on ``rt.device``.
 
-    ``options=RunOptions(...)`` carries the shared knobs in one validated
-    object; ``backend=``/``message_dtype=`` is the per-kwarg spelling.
+    ``fused=True`` runs the iteration on the fused runner; ``tol``
+    additionally stops once ``‖pr_{t+1} − pr_t‖∞ ≤ tol`` (and implies
+    fused).
     """
-    opts, extra = _options(options, backend, backend_opts)
+    opts, extra = _options(options, "pagerank", backend, fused, tol, chunk,
+                           backend_opts)
     spec = build_pagerank(rt, damping, backend=opts.backend, init=init,
                           **opts.backend_opts(), **extra)
-    out, actives = run_bsp(spec.superstep, spec.state, spec.static,
-                           num_iters)
+    out, actives = _run(spec, num_iters, opts)
     return spec.finalize(rt, out), actives
+
+
+def _sources(rt: PartitionRuntime, source: int) -> np.ndarray:
+    """(p, Vmax) float32 distances: 0 at every copy of ``source``, else
+    +inf."""
+    dist0 = np.full((rt.p, rt.vmax), np.inf, dtype=np.float32)
+    dist0[np.nonzero(rt.local_vertex_gid == source)] = 0.0
+    return dist0
+
+
+def _fin_dist(key: str):
+    return lambda rt, out: rt.gather_global(out[key].cpu().numpy(),
+                                            fill=np.inf)
+
+
+# ---------------------------------------------------------------------------
+# SSSP (sparse: active set shrinks per superstep; (min, +))
+# ---------------------------------------------------------------------------
+
+def build_relax(rt: PartitionRuntime, source: int, weighted: bool, *,
+                backend="scatter", name: str = "sssp",
+                **backend_opts) -> AppSpec:
+    _, static, combine = _resolve(rt, backend, "min_plus",
+                                  "weight" if weighted else "unit", "min",
+                                  **backend_opts)
+
+    def superstep(state, sa):
+        dist, changed = state["dist"], state["changed"]
+        # only vertices that improved last superstep send; +inf is the
+        # (min, +) no-message value, so the masked entries fold to the
+        # ⊕ identity — exact, because an unchanged vertex's distance was
+        # already folded into its neighbors when it last changed
+        msg = torch.where(changed, dist, float("inf"))
+        cand = combine(sa, msg)               # post-exchange ("min")
+        new_dist = torch.minimum(dist, cand)
+        new_dist = torch.where(sa["vertex_valid"], new_dist, float("inf"))
+        new_changed = new_dist < dist         # vertices updated this step
+        return ({"dist": new_dist, "changed": new_changed},
+                new_changed.sum(dim=1))
+
+    dist0 = _sources(rt, source)
+    dev = static["vertex_valid"].device
+    state = {"dist": torch.from_numpy(dist0).to(dev),
+             "changed": torch.from_numpy(np.isfinite(dist0)).to(dev)}
+    return AppSpec(name, superstep, state, static, _fin_dist("dist"))
+
+
+def sssp(rt: PartitionRuntime, source: int = 0, num_iters: int = 30, *,
+         options: RunOptions | None = None, backend="scatter", fused=False,
+         tol=None, chunk=8, **backend_opts):
+    """Returns ((V,) distances from ``source`` by edge weight, (steps, p)
+    actives)."""
+    opts, extra = _options(options, "sssp", backend, fused, tol, chunk,
+                           backend_opts)
+    spec = build_relax(rt, source, weighted=True, backend=opts.backend,
+                       **opts.backend_opts(), **extra)
+    out, actives = _run(spec, num_iters, opts)
+    return spec.finalize(rt, out), actives
+
+
+# ---------------------------------------------------------------------------
+# BFS (sparse: frontier grows/shrinks; (or, and))
+# ---------------------------------------------------------------------------
+
+def build_bfs(rt: PartitionRuntime, source: int, *, backend="scatter",
+              **backend_opts) -> AppSpec:
+    """Layer-synchronous BFS: the frontier (vertices discovered last
+    superstep) expands through one (or, and) product per step.  Distances
+    equal the (min, +) relaxation with unit weights."""
+    _, static, combine = _resolve(rt, backend, "or_and", "unit", "max",
+                                  **backend_opts)
+
+    def superstep(state, sa):
+        dist, step = state["dist"], state["step"]
+        vv = sa["vertex_valid"]
+        frontier = (vv & (dist == step[:, None])).to(torch.float32)
+        reached = combine(sa, frontier)       # post-exchange ("max")
+        newly = vv & (reached > 0) & torch.isinf(dist)
+        new_dist = torch.where(newly, step[:, None] + 1.0, dist)
+        return {"dist": new_dist, "step": step + 1.0}, newly.sum(dim=1)
+
+    dev = static["vertex_valid"].device
+    state = {"dist": torch.from_numpy(_sources(rt, source)).to(dev),
+             "step": torch.zeros(rt.p, dtype=torch.float32, device=dev)}
+    return AppSpec("bfs", superstep, state, static, _fin_dist("dist"))
+
+
+def bfs(rt: PartitionRuntime, source: int = 0, num_iters: int = 30, *,
+        options: RunOptions | None = None, backend="scatter", fused=False,
+        tol=None, chunk=8, **backend_opts):
+    """Returns ((V,) hop distances from ``source``, (steps, p) actives)."""
+    opts, extra = _options(options, "bfs", backend, fused, tol, chunk,
+                           backend_opts)
+    spec = build_bfs(rt, source, backend=opts.backend,
+                     **opts.backend_opts(), **extra)
+    out, actives = _run(spec, num_iters, opts)
+    return spec.finalize(rt, out), actives
+
+
+# ---------------------------------------------------------------------------
+# Weakly-connected components (label propagation: (min, +), zero weights)
+# ---------------------------------------------------------------------------
+
+def build_components(rt: PartitionRuntime, *, backend="scatter",
+                     **backend_opts) -> AppSpec:
+    _, static, combine = _resolve(rt, backend, "min_plus", "zero", "min",
+                                  **backend_opts)
+
+    def superstep(state, sa):
+        lab, changed = state["lab"], state["changed"]
+        msg = torch.where(changed, lab, float("inf"))  # as in SSSP
+        cand = combine(sa, msg)               # post-exchange min label
+        new = torch.minimum(lab, cand)
+        new = torch.where(sa["vertex_valid"], new, float("inf"))
+        new_changed = new < lab
+        return {"lab": new, "changed": new_changed}, new_changed.sum(dim=1)
+
+    vv = static["vertex_valid"]
+    gid = torch.from_numpy(rt.local_vertex_gid).to(vv.device)
+    # every valid vertex broadcasts its own label once, on superstep 1
+    state = {"lab": torch.where(vv, gid.to(torch.float32), float("inf")),
+             "changed": vv.clone()}
+    return AppSpec("cc", superstep, state, static, _fin_dist("lab"))
+
+
+def connected_components(rt: PartitionRuntime, num_iters: int = 30, *,
+                         options: RunOptions | None = None,
+                         backend="scatter", fused=False, tol=None, chunk=8,
+                         **backend_opts):
+    """Min-label propagation; returns ((V,) component id per vertex,
+    (steps, p) actives)."""
+    opts, extra = _options(options, "cc", backend, fused, tol, chunk,
+                           backend_opts)
+    spec = build_components(rt, backend=opts.backend,
+                            **opts.backend_opts(), **extra)
+    out, actives = _run(spec, num_iters, opts)
+    return spec.finalize(rt, out), actives
+
+
+#: app name -> AppSpec builder
+APP_BUILDERS = {
+    "pagerank": build_pagerank,
+    "sssp": lambda rt, **kw: build_relax(rt, kw.pop("source", 0), True,
+                                         **kw),
+    "bfs": lambda rt, **kw: build_bfs(rt, kw.pop("source", 0), **kw),
+    "cc": build_components,
+}
+
+
+def build_app(rt: PartitionRuntime, app: str, *, backend="scatter",
+              **kw) -> AppSpec:
+    """Build any registered app's :class:`AppSpec` by name."""
+    try:
+        builder = APP_BUILDERS[app]
+    except KeyError:
+        raise ValueError(f"unknown BSP app {app!r} "
+                         f"(choices: {sorted(APP_BUILDERS)})") from None
+    return builder(rt, backend=backend, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Triangle counting (dense): edge-parallel |N(u) ∩ N(v)| with the global
+# adjacency replicated to every machine; each machine scans only its own
+# edges.  Exact — every triangle is seen by exactly 3 edges, hence the /3.
+# ---------------------------------------------------------------------------
+
+def triangle_count(rt: PartitionRuntime, g, *, max_degree: int = 64,
+                   chunk: int = 4096) -> int:
+    """Exact triangle count over the partitioned edge sets, on
+    ``rt.device``.
+
+    Adjacency intersections run against a degree-bounded global neighbor
+    table (ELL layout, an equality contraction of ``(chunk, cap, cap)``
+    per chunk of edges); edges whose endpoint exceeds the bound take the
+    reference's numpy sorted-intersection fallback on the host (hubs are
+    few; each edge is still counted exactly once).
+    """
+    deg = g.degree()
+    cap = int(max_degree)
+    V = g.num_vertices
+    ell = np.full((V, cap), -1, dtype=np.int32)
+    over = np.flatnonzero(deg > cap)
+    for v in np.flatnonzero((deg > 0) & (deg <= cap)):
+        nb = g.neighbors(v)
+        ell[v, :len(nb)] = np.sort(nb)
+    dev = rt.device
+    ell_t = torch.from_numpy(ell).to(dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    host = 0
+    for i in range(rt.p):
+        m = rt.edge_valid[i]
+        gids = rt.local_vertex_gid[i][rt.local_edges[i]]
+        both_ok = m & ~np.isin(gids[:, 0], over) & ~np.isin(gids[:, 1], over)
+        eg = torch.from_numpy(gids[both_ok].astype(np.int64)).to(dev)
+        for s in range(0, len(eg), chunk):
+            a = ell_t[eg[s:s + chunk, 0]]            # (chunk, cap)
+            b = ell_t[eg[s:s + chunk, 1]]
+            hit = (a[:, :, None] == b[:, None, :]) & (a[:, :, None] >= 0)
+            count += hit.sum()
+        # numpy fallback for hub endpoints
+        for e in np.flatnonzero(m & ~both_ok):
+            u, v = gids[e]
+            host += len(np.intersect1d(g.neighbors(u), g.neighbors(v),
+                                       assume_unique=True))
+    return (int(count) + host) // 3

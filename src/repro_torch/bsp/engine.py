@@ -9,9 +9,19 @@ machine dim (the reference's ``psum``/``pmin``/``pmax``), and every machine
 gathers the combined value back.
 
 Superstep contract: ``superstep(state, static) -> (state, (p,) active)``.
+
+Two runners iterate that contract, as in the reference:
+
+* :func:`run_bsp`: one superstep at a time, with a host sync on the
+  active counts after each.  The oracle.
+* :func:`run_bsp_fused` / :func:`make_fused_runner`: chunks of supersteps
+  with on-device convergence, the host reading a ``done`` flag only at
+  chunk boundaries.  On CUDA each chunk is one captured CUDA graph,
+  replayed (the counterpart of the reference's jitted ``lax.scan``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -85,3 +95,186 @@ def run_bsp(superstep: Callable, state, static, num_steps: int):
         # zero steps still contract to a (0, p) actives array
         return state, np.zeros((0, _num_machines(state)))
     return state, np.stack(actives)
+
+
+def _state_residual(old: dict, new: dict) -> torch.Tensor:
+    """Global ``‖new − old‖∞`` over every state leaf (cast to float32), a
+    0-d device tensor.
+
+    The convergence measure for contraction-map apps (PageRank):
+    counter/mask leaves would keep it ≥ 1, which is why the monotone apps
+    gate on the active count instead.
+    """
+    return functools.reduce(torch.maximum, [
+        (new[k].float() - old[k].float()).abs().max() for k in old])
+
+
+class FusedRunner:
+    """A reusable fused runner: ``run(state, num_steps)`` (see
+    :func:`make_fused_runner`).
+
+    ``graphs`` holds the CUDA graph captured for each chunk length and
+    ``replays`` counts its replays.  A kernel wrapper called inside a
+    capture launches nothing and counts nothing; each replay launches the
+    graph's kernel nodes, which a profiler's trace records.
+    """
+
+    def __init__(self, superstep: Callable, static, *, chunk: int = 8,
+                 tol: float | None = None):
+        self.superstep, self.static = superstep, static
+        self.chunk = max(1, int(chunk))
+        self.tol = tol
+        self.graphs: dict = {}       # chunk length -> (graph, t, buf)
+        self.replays: dict = {}      # chunk length -> replays
+        self._io = None              # static state/done buffers (CUDA)
+
+    def _done_of(self, old, new, act) -> torch.Tensor:
+        if self.tol is not None:
+            return _state_residual(old, new) <= self.tol
+        return act.sum() == 0
+
+    def _chunk(self, state: dict, done: torch.Tensor, length: int):
+        """``length`` supersteps, each predicated on ``done``: a step after
+        convergence runs but keeps the state, counts no step and records
+        zero actives.  Returns ``(state, done, steps run, (length, p)
+        actives)``; nothing here syncs with the host."""
+        t = torch.zeros((), dtype=torch.int64, device=done.device)
+        rows = []
+        for _ in range(length):
+            new, act = self.superstep(state, self.static)
+            live = ~done
+            rows.append(torch.where(live, act, torch.zeros_like(act)))
+            t = t + live.long()
+            done = done | (live & self._done_of(state, new, act))
+            state = {k: torch.where(live, new[k], v)
+                     for k, v in state.items()}
+        return state, done, t, torch.stack(rows)
+
+    def _replay(self, length: int):
+        """Replay (capturing first, once) the CUDA graph of a chunk of
+        ``length`` supersteps over the static buffers."""
+        if length not in self.graphs:
+            io = self._io
+            dev = io["done"].device
+            if not self.graphs:
+                # warm up on a side stream, on copies: lazy initialisation
+                # (library handles, the kernels' builds) stays out of the
+                # capture
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    self._chunk({k: v.clone()
+                                 for k, v in io["state"].items()},
+                                io["done"].clone(), 1)
+                torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    state, done, t, buf = self._chunk(io["state"],
+                                                      io["done"], length)
+                    for k, v in state.items():
+                        io["state"][k].copy_(v)
+                    io["done"].copy_(done)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"fused runner: capturing {length} supersteps as a "
+                    f"CUDA graph failed; a superstep must not sync with "
+                    f"the host: {e}") from e
+            self.graphs[length] = (graph, t, buf)
+        graph, t, buf = self.graphs[length]
+        graph.replay()
+        self.replays[length] = self.replays.get(length, 0) + 1
+        return t.clone(), buf.clone()
+
+    def __call__(self, state: dict, num_steps: int):
+        p = _num_machines(state)
+        if num_steps <= 0:
+            return state, np.zeros((0, p))
+        num_chunks = -(-num_steps // self.chunk)
+        lengths = [self.chunk] * (num_chunks - 1) \
+            + [num_steps - self.chunk * (num_chunks - 1)]
+        dev = next(iter(state.values())).device
+        on_cuda = dev.type == "cuda"
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        if on_cuda:
+            self._bind(state)
+            done = self._io["done"]
+        ts, bufs = [], []
+        for length in lengths:
+            if on_cuda:
+                t, buf = self._replay(length)
+            else:
+                state, done, t, buf = self._chunk(state, done, length)
+            ts.append(t)
+            bufs.append(buf)
+            if bool(done):          # the one host sync of a chunk
+                break
+        if on_cuda:
+            state = {k: v.clone() for k, v in self._io["state"].items()}
+        steps = int(torch.stack(ts).sum())
+        actives = torch.cat(bufs).cpu().numpy()[:steps]
+        return state, actives
+
+    def _bind(self, state: dict) -> None:
+        """Copy ``state`` into the static buffers the graphs read and
+        write (allocated, and the graphs dropped, when the state's layout
+        changes) and clear ``done``."""
+        io = self._io
+        same = io is not None and io["state"].keys() == state.keys() and all(
+            io["state"][k].shape == v.shape and io["state"][k].dtype
+            == v.dtype and io["state"][k].device == v.device
+            for k, v in state.items())
+        if not same:
+            dev = next(iter(state.values())).device
+            self._io = io = {
+                "state": {k: torch.empty_like(v) for k, v in state.items()},
+                "done": torch.zeros((), dtype=torch.bool, device=dev)}
+            self.graphs.clear()
+        for k, v in state.items():
+            io["state"][k].copy_(v)
+        io["done"].fill_(False)
+
+
+def make_fused_runner(superstep: Callable, static, *, chunk: int = 8,
+                      tol: float | None = None) -> FusedRunner:
+    """Build a reusable fused runner: ``run(state, num_steps)``.
+
+    The run takes ``ceil(num_steps / chunk)`` chunks of supersteps, each
+    ending on its limit or on convergence:
+
+    * ``tol is None``: converged when the global active count hits 0
+      (the monotone apps: BFS/SSSP/CC activity is exactly the changed
+      set, and 0 is absorbing);
+    * ``tol`` set: converged when ``‖state_{t+1} − state_t‖∞ ≤ tol`` over
+      every state leaf in float32 (PageRank power iteration).
+
+    Each step of a chunk is predicated on the device ``done`` flag: it
+    writes ``state = where(done, state, new_state)``, counts a step only
+    while not done, and then sets ``done`` as the reference's ``done_of``
+    does, so every state leaf equals the reference's fused result.  A
+    chunk's converged tail still launches its supersteps (the reference's
+    ``while_loop`` skips them).  The host reads ``done`` only between
+    chunks and runs no further chunk once it is set.  Actives go into a
+    ``(chunk, p)`` device buffer per chunk, trimmed to the steps run;
+    zero steps give ``(0, p)``.
+
+    On CUDA each chunk is one CUDA graph, captured once per chunk length
+    (after a one-step warm-up on a side stream) and replayed; a capture
+    that fails raises, and nothing falls back to eager execution.  On the
+    CPU the same predicated loop runs eagerly.
+    """
+    return FusedRunner(superstep, static, chunk=chunk, tol=tol)
+
+
+def run_bsp_fused(superstep: Callable, state, static, num_steps: int,
+                  *, chunk: int = 8, tol: float | None = None):
+    """One fused BSP run (see :func:`make_fused_runner`).
+
+    Returns ``(final_state, (steps_run, p) actives)``.  With ``tol=None``
+    the final state of a min/max-semiring app equals :func:`run_bsp`'s
+    after ``num_steps`` supersteps (converged supersteps are state
+    fixpoints, BFS's step counter aside) and the actives are the stepwise
+    prefix (the stepwise tail is all zeros).
+    """
+    return make_fused_runner(superstep, static, chunk=chunk,
+                             tol=tol)(state, num_steps)

@@ -33,6 +33,17 @@ from ..kernels.bsr_spmv import get_semiring
 #: weight kinds an app may ask for: the stored ⊗ operand per edge
 WEIGHT_KINDS = ("weight", "unit", "zero")
 
+#: message (block storage) dtypes, by the reference's names
+MESSAGE_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def message_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a message dtype name; raises on any other name."""
+    if str(name) not in MESSAGE_DTYPES:
+        raise ValueError(f"message_dtype must be one of {MESSAGE_DTYPES}, "
+                         f"got {name!r}")
+    return getattr(torch, str(name))
+
 
 def edge_operand(edge_weight: np.ndarray, weights: str) -> np.ndarray:
     """Raw ⊗ operand per edge for a weight kind (same shape as the weights)."""
@@ -62,7 +73,7 @@ class LocalBSR:
     """
 
     cols: torch.Tensor      # (p, R, K) int32 block-column ids
-    blocks: torch.Tensor    # (p, R, K, bm, bm) float32 (absent-padded)
+    blocks: torch.Tensor    # (p, R, K, bm, bm) message dtype (absent-padded)
     gather: torch.Tensor    # (p, R*bm) int64: BSR position -> local index
     rank: torch.Tensor      # (p, Vmax) int64: local index -> BSR position
     block_size: int
@@ -95,18 +106,25 @@ class LocalBSR:
 
     @classmethod
     def build(cls, rt: "PartitionRuntime", *, block_size: int = 128,
-              semiring: str = "plus_times",
-              weights: str = "weight") -> "LocalBSR":
+              semiring: str = "plus_times", weights: str = "weight",
+              dtype: str = "float32") -> "LocalBSR":
         """Blocked adjacency from ``rt.local_edges`` on ``rt.device``.
 
         ``cols``, ``gather`` and ``rank`` come from the host exactly as
         the reference computes them.  The dense blocks never exist on the
         host: they start as ``absent`` on the device and every edge, in
-        both directions, is ⊕-accumulated at its (machine, block-row, ELL
-        slot, row, col) cell, so parallel edges combine as the reference's
+        both directions, is ⊕-accumulated at its (block-row, ELL slot,
+        row, col) cell, so parallel edges combine as the reference's
         ``np_accum_at`` combines them.
+
+        ``dtype`` is the stored block precision (the message dtype).  As
+        in the reference, blocks are built in float32 and rounded once;
+        here one machine at a time, through a float32 staging tensor of
+        one machine's blocks, so a 16-bit layout never sits beside its
+        whole float32 counterpart (37 GB at ``graph500:16``).
         """
         sr = get_semiring(semiring)
+        dt = message_dtype(dtype)
         p, vmax, bm = rt.p, rt.vmax, int(block_size)
         R = max(1, -(-vmax // bm))
         per, orders, ranks, stats = [], [], [], []
@@ -142,18 +160,21 @@ class LocalBSR:
             })
         K = max(k_i for *_, k_i in per)
         cols_np = np.zeros((p, R, K), dtype=np.int32)
-        flat, vals = [], []
+        dev = rt.device
+        blocks = torch.empty((p, R, K, bm, bm), dtype=dt, device=dev)
+        stage = None if dt == torch.float32 else torch.empty(
+            (R, K, bm, bm), dtype=torch.float32, device=dev)
         for i, (urow, uslot, ucol, rows, cols, slot, w, _) in enumerate(per):
             cols_np[i, urow, uslot] = ucol
-            flat.append(((((i * R + rows // bm) * K + slot) * bm
-                          + rows % bm) * bm) + cols % bm)
-            vals.append(w)
-        dev = rt.device
-        blocks = torch.full((p, R, K, bm, bm), sr.absent, dtype=torch.float32,
-                            device=dev)
-        sr.scatter_accum(blocks.view(-1),
-                         torch.from_numpy(np.concatenate(flat)).to(dev),
-                         torch.from_numpy(np.concatenate(vals)).to(dev))
+            flat = (((rows // bm) * K + slot) * bm + rows % bm) * bm \
+                + cols % bm
+            cells = blocks[i] if stage is None else stage
+            cells.fill_(sr.absent)
+            sr.scatter_accum(cells.view(-1), torch.from_numpy(flat).to(dev),
+                             torch.from_numpy(w).to(dev))
+            if stage is not None:
+                blocks[i].copy_(stage)          # one rounding to ``dt``
+        del stage
         gather = np.zeros((p, R * bm), dtype=np.int64)
         gather[:, :vmax] = np.stack(orders)
         return cls(cols=torch.from_numpy(cols_np).to(dev), blocks=blocks,
@@ -200,16 +221,25 @@ class PartitionRuntime:
         return {}
 
     def local_bsr(self, *, block_size: int = 128,
-                  semiring: str = "plus_times",
-                  weights: str = "weight") -> LocalBSR:
+                  semiring: str = "plus_times", weights: str = "weight",
+                  dtype: str = "float32") -> LocalBSR:
         """The blocked per-machine adjacency (:class:`LocalBSR`), built once
-        per (block_size, semiring, weights) and cached on the runtime."""
-        key = (int(block_size), get_semiring(semiring).name, str(weights))
+        per (block_size, semiring, weights, dtype) and cached on the
+        runtime; ``dtype`` is the stored block precision (the message
+        dtype)."""
+        key = (int(block_size), get_semiring(semiring).name, str(weights),
+               str(dtype))
         if key not in self._bsr_cache:
             self._bsr_cache[key] = LocalBSR.build(
                 self, block_size=block_size, semiring=semiring,
-                weights=weights)
+                weights=weights, dtype=dtype)
         return self._bsr_cache[key]
+
+    def clear_bsr_cache(self) -> None:
+        """Drop every cached :class:`LocalBSR`, so that its device memory
+        is freed once no app holds it (a layout at ``graph500:16`` is
+        18.6–37.2 GB)."""
+        self._bsr_cache.clear()
 
     @classmethod
     def create(cls, source=None, *, assign=None, p=None, cluster=None,

@@ -8,13 +8,20 @@ dimension.
 Layouts (leading machine axis ``p`` optional):
 
 * ``cols``   ``(p, R, K)``        int32 block-column ids (pad slots -> 0)
-* ``blocks`` ``(p, R, K, bm, bm)`` float32 dense blocks (``absent``-padded)
-* ``x``      ``(p, C*bm)``         float32 input, padded to a block multiple
-* ``y``      ``(p, R*bm)``         float32 output
+* ``blocks`` ``(p, R, K, bm, bm)`` dense blocks (``absent``-padded)
+* ``x``      ``(p, C*bm)``         input, padded to a block multiple
+* ``y``      ``(p, R*bm)``         output
+
+``blocks``, ``x`` and ``y`` share one dtype: float32, bfloat16 or float16
+(the BSP message dtype), each its own instance of the kernel.  The
+rounding contract of the 16-bit instances is ``ref.bsr_spmv_ref``'s.
 
 A tensor on the CPU goes to the plain version (``ref.bsr_spmv_ref``); a
 tensor on a CUDA device launches the kernel or raises.  Nothing falls
 back.  ``bsr_spmv.launches`` counts kernel launches (never plain calls).
+A call made while a CUDA graph captures the stream launches nothing: it
+adds a kernel node to the graph, which each replay launches, so it does
+not count; a profiler's trace records the replayed launches.
 """
 from __future__ import annotations
 
@@ -33,6 +40,10 @@ SOURCE = pathlib.Path(__file__).with_name("csrc") / "bsr_spmv.cu"
 #: the kernel stages 8 x slices of bm floats in (static-limit) shared memory
 MAX_BLOCK_SIZE = 48 * 1024 // (8 * 4)
 
+#: storage dtype -> C entry point of its kernel instance
+ENTRY_POINTS = {torch.float32: "bsr_spmv_f32", torch.bfloat16: "bsr_spmv_bf16",
+                torch.float16: "bsr_spmv_f16"}
+
 #: CUDA's limit on the grid's y (block-rows) and z (machines) dimensions
 MAX_GRID_YZ = 65535
 
@@ -41,10 +52,11 @@ MAX_GRID_YZ = 65535
 def build() -> Built:
     """Compile (at first use) and load the kernel library."""
     built = load_library(SOURCE)
-    fn = built.lib.bsr_spmv_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in ENTRY_POINTS.values():
+        fn = getattr(built.lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     built.lib.bsr_spmv_error_string.argtypes = [ctypes.c_int]
     built.lib.bsr_spmv_error_string.restype = ctypes.c_char_p
     return built
@@ -59,9 +71,10 @@ def _check(cols: torch.Tensor, blocks: torch.Tensor, x: torch.Tensor) -> None:
                          f"{cols.device}, {blocks.device}, {x.device}")
     if cols.dtype != torch.int32:
         raise TypeError(f"cols must be int32, got {cols.dtype}")
-    if blocks.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError(f"blocks and x must be float32, got {blocks.dtype} "
-                        f"and {x.dtype}")
+    if blocks.dtype != x.dtype or x.dtype not in ENTRY_POINTS:
+        raise TypeError(f"blocks and x must share one dtype of "
+                        f"{sorted(str(d) for d in ENTRY_POINTS)}, got "
+                        f"{blocks.dtype} and {x.dtype}")
     lead = tuple(cols.shape[:-2])
     if blocks.dim() != cols.dim() + 2 or blocks.shape[:-2] != cols.shape \
             or blocks.shape[-1] != blocks.shape[-2]:
@@ -98,13 +111,14 @@ def bsr_spmv(cols: torch.Tensor, blocks: torch.Tensor, x: torch.Tensor,
     y = torch.empty((p, R * bm), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bsr_spmv_f32(cols.data_ptr(), blocks.data_ptr(),
-                               x.data_ptr(), y.data_ptr(), p, R, K,
-                               x.shape[-1] // bm, bm, sr.code, stream)
+        err = getattr(lib, ENTRY_POINTS[x.dtype])(
+            cols.data_ptr(), blocks.data_ptr(), x.data_ptr(), y.data_ptr(),
+            p, R, K, x.shape[-1] // bm, bm, sr.code, stream)
     if err != 0:
         raise RuntimeError(f"bsr_spmv kernel launch failed: "
                            f"{lib.bsr_spmv_error_string(err).decode()}")
-    bsr_spmv.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        bsr_spmv.launches += 1
     return y if batched else y[0]
 
 

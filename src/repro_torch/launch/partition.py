@@ -7,11 +7,13 @@ The main path of the system: load (generate) a graph, run WindGP on the
 host, pack the partition into the fixed-shape ``PartitionRuntime``, and,
 with ``--pagerank``, run distributed PageRank as BSP supersteps on
 ``--device`` (default ``cuda``) through an edge-kernel backend: ``scatter``
-(the gather-scatter oracle) or ``pallas`` (the Block-ELL hand kernel).
-It prints the same JSON report and ``pagerank[...]``/``top-5`` lines as
-the reference CLI.  Edge-list files, ``--stream``, ``--compact``,
-``--workers``, ``--fused``, ``--tol`` and low-precision messages are not
-part of this package yet.
+(the gather-scatter oracle), ``segment`` (sorted-CSR reduction) or
+``pallas`` (the Block-ELL hand kernel), stepwise or on the fused runner
+(``--fused``, ``--tol``), with float32, bfloat16 or float16 messages
+(``--message-dtype``).  It prints the same JSON report and
+``pagerank[...]``/``top-5`` lines as the reference CLI.  Edge-list
+files, ``--stream``, ``--compact`` and ``--workers`` are not part of this
+package yet.
 """
 from __future__ import annotations
 
@@ -23,14 +25,12 @@ import time
 
 import numpy as np
 
+from ..bsp import (BACKENDS, MESSAGE_DTYPES, PartitionRuntime, RunOptions,
+                   pagerank)
 from ..core import evaluate, scaled_paper_cluster, windgp
 from ..core import partitioners as registry
 from ..data import graph500, rmat, road_mesh
 from ..device import resolve_device
-
-#: static mirror of ``repro_torch.bsp.backends.BACKENDS``, so that the
-#: argument parser does not import the BSP layer
-EDGE_BACKENDS = ("scatter", "pallas")
 
 
 def load_graph(spec: str):
@@ -73,10 +73,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="after partitioning, pack the BSP runtime and "
                          "run distributed PageRank on the partition")
     ap.add_argument("--pagerank-iters", type=int, default=20)
-    ap.add_argument("--backend", default="scatter", choices=EDGE_BACKENDS,
+    ap.add_argument("--backend", default="scatter", choices=BACKENDS,
                     help="edge-kernel backend for --pagerank: scatter "
-                         "(gather-scatter oracle), pallas (Block-ELL hand "
-                         "kernel)")
+                         "(gather-scatter oracle), segment (sorted-CSR "
+                         "reduction), pallas (Block-ELL hand kernel)")
+    ap.add_argument("--fused", action="store_true",
+                    help="--pagerank: run the iteration on the fused "
+                         "runner (chunks of supersteps, a CUDA graph each "
+                         "on cuda) instead of one host sync per superstep")
+    ap.add_argument("--tol", type=float, default=None,
+                    help="--pagerank: stop once the on-device residual "
+                         "max|pr_{t+1}-pr_t| <= TOL (implies --fused)")
+    ap.add_argument("--message-dtype", default="float32",
+                    choices=MESSAGE_DTYPES,
+                    help="--pagerank: edge-message precision; bfloat16 "
+                         "is the low-precision message path (messages "
+                         "cast down, accumulation stays float32 on "
+                         "scatter/segment)")
     ap.add_argument("--out", default=None, help=".npz output path")
     ap.add_argument("--device", default="cuda",
                     help="torch device for --pagerank (default cuda; "
@@ -116,7 +129,6 @@ def run(argv=None) -> Run:
         print(f"wrote {args.out}")
     out = Run(graph=g, cluster=cl, assign=assign, report=report)
     if args.pagerank:
-        from ..bsp import PartitionRuntime
         out.runtime = PartitionRuntime.create(g, assign=assign, cluster=cl,
                                               device=device)
         out.pagerank, out.actives = _run_pagerank(out.runtime, args)
@@ -125,13 +137,14 @@ def run(argv=None) -> Run:
 
 def _run_pagerank(rt, args):
     """Distributed PageRank on the fresh partition via --backend."""
-    from ..bsp import RunOptions, pagerank
-    opts = RunOptions(backend=args.backend)
+    opts = RunOptions(backend=args.backend, fused=args.fused, tol=args.tol,
+                      message_dtype=args.message_dtype)
     t0 = time.perf_counter()
     pr, actives = pagerank(rt, num_iters=args.pagerank_iters, options=opts)
     dt = time.perf_counter() - t0
     top = np.argsort(pr)[::-1][:5]
-    print(f"pagerank[{args.backend}/stepwise/{opts.message_dtype}]: "
+    mode = "fused" if (args.fused or args.tol is not None) else "stepwise"
+    print(f"pagerank[{args.backend}/{mode}/{args.message_dtype}]: "
           f"{len(actives)}/{args.pagerank_iters} supersteps on "
           f"p={rt.p} machines (R={rt.num_replicas} replicas) in {dt:.2f}s; "
           f"mass={pr.sum():.6f}")

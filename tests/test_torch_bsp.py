@@ -107,17 +107,17 @@ def test_zero_steps_give_empty_actives(runtimes):
 def test_run_options_errors(runtimes):
     _, _, rt = runtimes
     with pytest.raises(ValueError, match="backend"):
-        RunOptions(backend="segment").validate()
+        RunOptions(backend="dense").validate()
     with pytest.raises(ValueError, match="message_dtype"):
-        RunOptions(message_dtype="bfloat16").validate()
+        RunOptions(message_dtype="float64").validate()
     with pytest.raises(ValueError, match="message_dtype"):
-        pagerank(rt, num_iters=1, message_dtype="float16")
+        pagerank(rt, num_iters=1, message_dtype="int8")
     with pytest.raises(ValueError, match="both"):
         pagerank(rt, num_iters=1, options=RunOptions(), backend="pallas")
     with pytest.raises(ValueError, match="backend"):
-        get_backend("segment")
+        get_backend("dense")
     with pytest.raises(ValueError, match="message_dtype"):
-        get_backend("scatter", message_dtype="bfloat16").prepare(
+        get_backend("scatter", message_dtype="float64").prepare(
             rt, "plus_times", "weight")
     assert RunOptions(backend="pallas").validate().backend_opts() == {
         "message_dtype": "float32"}

@@ -3,7 +3,11 @@ against the reference's Pallas kernel (interpret mode) and its plain
 version, per semiring, with and without the machine axis.
 
 Tolerances: (min, +) and (or, and) are exact in any order, so they are
-bitwise; (+, ×) reassociates float32 sums: rtol=1e-5, atol=1e-7.
+bitwise; (+, ×) reassociates float32 sums: rtol=1e-5, atol=1e-7.  The
+16-bit instances round once per ELL slot (the slot's float32 row sum) and
+once per fold into ``y``, so (+, ×) is held within
+``ref.plus_times_bounds``: the interval that any float32 order of the slot
+sums admits, bitwise wherever no slot sum lies near a rounding boundary.
 """
 import jax
 import jax.numpy as jnp
@@ -48,6 +52,15 @@ def assert_semiring_close(got, want, semiring):
         np.testing.assert_array_equal(got, want)
 
 
+def assert_within_bounds(got, cols, blocks, x, dtype):
+    """``got`` (float32 numpy) inside ``plus_times_bounds`` of the 16-bit
+    inputs ``blocks``/``x`` (float32 numpy holding 16-bit values)."""
+    lo, hi = port_k.plus_times_bounds(torch.from_numpy(cols),
+                                      torch.from_numpy(blocks).to(dtype),
+                                      torch.from_numpy(x).to(dtype))
+    assert ((lo.float().numpy() <= got) & (got <= hi.float().numpy())).all()
+
+
 def port_spmv(cols, blocks, x, semiring):
     return port_k.bsr_spmv(torch.from_numpy(cols), torch.from_numpy(blocks),
                            torch.from_numpy(x), semiring).numpy()
@@ -82,6 +95,62 @@ def test_machine_axis_matches_vmapped_pallas(semiring):
     for i in range(3):
         assert_semiring_close(port_spmv(cols[i], blocks[i], x[i], semiring),
                               got[i], semiring)
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_plain_16bit_matches_pallas_interpret(dtype, semiring):
+    """The reference kernel's own bf16/f16 instance against the plain
+    version in the same dtype, with and without the machine axis."""
+    rng = np.random.default_rng(17)
+    tdt = getattr(torch, dtype)
+    cols, blocks, x = random_layout(rng, semiring, p=2)
+    # the 16-bit values, exact in float32, feed both packages
+    blocks = torch.from_numpy(blocks).to(tdt).float().numpy()
+    x = torch.from_numpy(x).to(tdt).float().numpy()
+    run = jax.vmap(lambda c, b, v: ref_k.spmv_pallas(
+        c, b, v, block_size=16, interpret=True, semiring=semiring))
+    want = np.asarray(run(jnp.asarray(cols),
+                          jnp.asarray(blocks).astype(dtype),
+                          jnp.asarray(x).astype(dtype))).astype(np.float32)
+    got = port_k.bsr_spmv(torch.from_numpy(cols),
+                          torch.from_numpy(blocks).to(tdt),
+                          torch.from_numpy(x).to(tdt), semiring)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    if semiring == "plus_times":
+        assert_within_bounds(want, cols, blocks, x, tdt)
+        assert_within_bounds(got, cols, blocks, x, tdt)
+    else:
+        np.testing.assert_array_equal(got, want)
+    for i in range(2):
+        one = port_k.bsr_spmv_ref(
+            torch.from_numpy(cols[i]), torch.from_numpy(blocks[i]).to(tdt),
+            torch.from_numpy(x[i]).to(tdt), semiring).float().numpy()
+        np.testing.assert_array_equal(one, got[i])
+
+
+@pytest.mark.parametrize("fault", ["slot_skipped", "two_units_high"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_16bit_bounds_reject_planted_faults(dtype, fault):
+    """The (+, ×) hold rejects a plain version that skips the first ELL
+    slot, and one whose result is two units in the last place high."""
+    rng = np.random.default_rng(18)
+    tdt = getattr(torch, dtype)
+    cols, blocks, x = random_layout(rng, "plus_times", p=2)
+    blocks = torch.from_numpy(blocks).to(tdt).float().numpy()
+    x = torch.from_numpy(x).to(tdt).float().numpy()
+    args = (torch.from_numpy(cols), torch.from_numpy(blocks).to(tdt),
+            torch.from_numpy(x).to(tdt))
+    assert_within_bounds(port_k.bsr_spmv_ref(*args).float().numpy(),
+                         cols, blocks, x, tdt)
+    if fault == "slot_skipped":
+        bad = port_k.bsr_spmv_ref(args[0][..., 1:], args[1][:, :, 1:],
+                                  args[2])
+    else:
+        bad = port_k.bsr_spmv_ref(*args) * (1 + 2 * torch.finfo(tdt).eps)
+    with pytest.raises(AssertionError):
+        assert_within_bounds(bad.float().numpy(), cols, blocks, x, tdt)
 
 
 @pytest.mark.parametrize("semiring", SEMIRINGS)

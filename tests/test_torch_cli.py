@@ -1,4 +1,5 @@
 """The port's partition CLI against the reference CLI on the CPU."""
+import ast
 import json
 
 import pytest
@@ -36,6 +37,29 @@ def test_cli_pallas_pagerank_matches_reference_report(capsys):
     assert "top-5:" in out
 
 
+@pytest.mark.parametrize("flags", [
+    ["--backend", "segment", "--fused"],
+    ["--backend", "pallas", "--message-dtype", "bfloat16", "--tol", "1e-7"],
+    ["--backend", "scatter", "--message-dtype", "float16"],
+])
+def test_cli_pagerank_flags_print_the_reference_report(capsys, flags):
+    """The pagerank line as the reference CLI prints it, less the time,
+    and the same top-5 vertices."""
+    argv = ["--graph", "rmat:9", "--pagerank", "--pagerank-iters", "8",
+            *flags]
+    assert ref_cli.main(argv) == 0
+    ref_out = capsys.readouterr().out
+    assert port_cli.main([*argv, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+
+    def lines(text):
+        pr = next(x for x in text.splitlines() if x.startswith("pagerank["))
+        top = next(x for x in text.splitlines() if x.startswith("top-5:"))
+        return (pr.split(" in ")[0],
+                sorted(ast.literal_eval(top[len("top-5:"):])))
+    assert lines(out) == lines(ref_out)
+
+
 def test_cli_run_returns_runtime_and_ranks():
     res = port_cli.run(["--graph", "mesh:12", "--pagerank", "--device",
                         "cpu", "--pagerank-iters", "3"])
@@ -54,7 +78,6 @@ def test_cli_requires_gpu_unless_cpu_is_asked(monkeypatch):
 
 def test_cli_rejects_unported_inputs():
     with pytest.raises(SystemExit):
-        port_cli.main(["--graph", "rmat:8", "--backend", "segment",
-                       "--device", "cpu"])
+        port_cli.main(["--graph", "rmat:8", "--stream", "--device", "cpu"])
     with pytest.raises(ValueError):
         port_cli.main(["--graph", "edges.txt", "--device", "cpu"])

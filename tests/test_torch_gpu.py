@@ -9,7 +9,11 @@ GPU machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: (min, +) and (or, and) bitwise; (+, ×) rtol=1e-5 (float32
-sums reassociate); PageRank atol=1e-6, rtol=1e-5.  decode_attn and ssd in
+sums reassociate); in bfloat16/float16 (+, ×) within 2K units in the last
+place of the absolute sum (one rounding per ELL slot and per fold, each
+of which a float32 reassociation can move by one unit); PageRank
+atol=1e-6, rtol=1e-5.  The fused runner (CUDA graphs) is held bitwise
+against the stepwise one for SSSP, BFS and CC.  decode_attn and ssd in
 float32 as the JAX kernel tests hold them (2e-5 and 2e-4); in bfloat16
 as ``chip_smoke.py`` holds them: both versions see the same bf16 inputs
 and differ in float32 summation order only, which can move the rounded
@@ -21,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.bsp import PartitionRuntime, pagerank
+from repro_torch.bsp import (PartitionRuntime, bfs, build_app,
+                             connected_components, frontier_entries,
+                             make_fused_runner, pagerank, run_bsp, sssp)
 from repro_torch.core import scaled_paper_cluster, windgp
 from repro_torch.data import rmat
 from repro_torch.configs import get_reduced
@@ -83,6 +89,35 @@ def test_kernel_matches_plain(cuda, semiring, bm):
     assert torch.equal(got0, got[1])
 
 
+@pytest.mark.parametrize("bm", [128, 30])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "or_and"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kernel_16bit_matches_plain(cuda, dtype, semiring, bm):
+    rng = np.random.default_rng(16)
+    cols, blocks, x = random_layout(rng, semiring, bm=bm)
+    C = x.shape[-1] // bm
+    cols[:, 1, 0] = C - 1                   # the block column at x's end
+    if semiring == "min_plus":              # ±inf in x
+        x[:, :bm] = -np.inf
+        x[:, -1] = np.inf
+    cols, blocks, x = (torch.from_numpy(a).to(cuda) for a in (cols, blocks, x))
+    blocks, x = blocks.to(dtype), x.to(dtype)
+    before = port_k.bsr_spmv.launches
+    got = port_k.bsr_spmv(cols, blocks, x, semiring)
+    torch.cuda.synchronize()
+    assert port_k.bsr_spmv.launches == before + 1
+    assert got.dtype == dtype
+    want = port_k.bsr_spmv_ref(cols, blocks, x, semiring)
+    if semiring == "plus_times":
+        # inside the interval any float32 order of the slot sums admits
+        lo, hi = port_k.plus_times_bounds(cols, blocks, x)
+        for y in (got, want):
+            assert bool(((lo <= y) & (y <= hi)).all())
+    else:       # -inf + an absent +inf block is NaN in both versions
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+
+
 @pytest.fixture
 def runtimes(cuda):
     g = rmat(10, seed=42)
@@ -113,6 +148,66 @@ def test_pagerank_pallas_matches_scatter(runtimes):
     np.testing.assert_allclose(pr, pr_s, atol=1e-6, rtol=1e-5)
     np.testing.assert_allclose(pr, pr_cpu, atol=1e-6, rtol=1e-5)
     assert act.shape == (10, rt.p)
+
+
+SPARSE_APPS = {"sssp": (sssp, dict(source=0, num_iters=25)),
+               "bfs": (bfs, dict(source=1, num_iters=25)),
+               "cc": (connected_components, dict(num_iters=25))}
+
+
+@pytest.mark.parametrize("backend,opts", [
+    ("pallas", {"block_size": 32}),
+    ("pallas", {"block_size": 32, "message_dtype": "bfloat16"}),
+    ("scatter", {}), ("segment", {})])
+@pytest.mark.parametrize("app", list(SPARSE_APPS))
+def test_fused_graphs_match_stepwise(runtimes, app, backend, opts):
+    on_cpu, rt = runtimes
+    fn, kw = SPARSE_APPS[app]
+    a, acts_a = fn(rt, backend=backend, **kw, **opts)
+    b, acts_b = fn(rt, backend=backend, fused=True, chunk=4, **kw, **opts)
+    np.testing.assert_array_equal(a, b)
+    n = len(acts_b)
+    assert 0 < n < kw["num_iters"]
+    np.testing.assert_array_equal(acts_a[:n], acts_b)
+    assert acts_a[n:].sum() == 0
+    c, _ = fn(on_cpu, backend=backend, fused=True, chunk=4, **kw, **opts)
+    np.testing.assert_array_equal(b, c)
+
+
+def test_fused_runner_replays_captured_graphs(runtimes):
+    _, rt = runtimes
+    spec = build_app(rt, "sssp", backend="pallas", block_size=32)
+    run = make_fused_runner(spec.superstep, spec.static, chunk=3)
+    launches = port_k.bsr_spmv.launches
+    out, acts = run(spec.state, 7)         # chunks of 3, 3 and 1
+    torch.cuda.synchronize()
+    assert set(run.graphs) <= {3, 1} and 3 in run.graphs
+    assert sum(run.replays.values()) == -(-len(acts) // 3)
+    # the warm-up step launches; a call under capture is no launch
+    assert port_k.bsr_spmv.launches - launches == 1
+    ref_out, ref_acts = run_bsp(spec.superstep, spec.state, spec.static,
+                                len(acts))
+    for k in out:
+        assert torch.equal(out[k], ref_out[k]), k
+    np.testing.assert_array_equal(acts, ref_acts)
+    launches = port_k.bsr_spmv.launches
+    again, acts2 = run(spec.state, 7)        # replays, no new capture
+    assert torch.equal(again["dist"], out["dist"])
+    np.testing.assert_array_equal(acts2, acts)
+    assert port_k.bsr_spmv.launches == launches     # no warm-up step
+    assert sum(run.replays.values()) == 2 * -(-len(acts) // 3)
+
+
+def test_frontier_cap_on_cuda(runtimes):
+    _, rt = runtimes
+    for fused in (False, True):
+        dense, acts = sssp(rt, source=0, num_iters=25, fused=fused)
+        cap = int(rt.vmax)
+        sparse, acts_f = sssp(rt, source=0, num_iters=25, fused=fused,
+                              frontier_cap=cap)
+        np.testing.assert_array_equal(dense, sparse)
+        np.testing.assert_array_equal(acts, acts_f)
+    assert (frontier_entries(rt, rt.vertex_valid) <= cap).all()
 
 
 TOL = {torch.float32: {"decode": dict(rtol=2e-5, atol=2e-5),
@@ -299,3 +394,17 @@ def test_reduced_model_card_matches_cpu(cuda, arch):
     assert kern.launches > before
     assert torch.equal(toks.cpu(),
                        generate(cfg, on_cpu, prompts, 4, device="cpu"))
+
+
+# last in the file, so that a device left in a bad state by the failed
+# capture cannot affect another test
+def test_fused_capture_failure_raises(cuda):
+    def superstep(state, static):
+        x = state["x"] + 1
+        if x.sum().item() > 1e9:       # a host sync inside the capture
+            x = x * 0
+        return {"x": x}, (x > 0).sum(dim=1)
+
+    run = make_fused_runner(superstep, {}, chunk=2)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        run({"x": torch.zeros((3, 4), device=cuda)}, 4)
