@@ -10,11 +10,13 @@ the script exit non-zero after it has printed what it measured):
    ``ssd``) from the sources in this checkout, one ``nvcc`` each, all at
    once;
 2. hold ``bsr_spmv`` against its plain PyTorch version on the card, for
-   each semiring, at bm = 128 on random layouts with ELL padding slots:
-   bitwise for (min,+) and (or,and), rtol=1e-5 for (+,×); 2b: the same
-   for its bfloat16 and float16 instances, (+,×) inside the interval any
-   float32 order of the slot sums admits (``plus_times_bounds``, bitwise
-   where no slot sum lies near a rounding boundary);
+   each semiring, on random layouts with ELL padding slots at bm = 128
+   (the ring filled by bulk copies) and bm = 30 (filled by the producer's
+   own loads): bitwise for (min,+) and (or,and), rtol=1e-5 for (+,×);
+   2b: the same for its bfloat16 and float16 instances, (+,×) inside the
+   interval any float32 order of the slot sums admits
+   (``plus_times_bounds``, bitwise where no slot sum lies near a rounding
+   boundary);
 3. drive the graph path through the port's CLI entry: ``graph500:16``,
    WindGP on the default cluster (3 super + 6 normal machines), PageRank
    for 20 supersteps on the ``pallas`` backend (the kernel), on ``cuda``.
@@ -70,7 +72,14 @@ the script exit non-zero after it has printed what it measured):
    with launches per call); the grid and block of the timed launches are
    read from the profiler's trace, and the CTAs an SM holds from the CUDA
    runtime's occupancy query for the kernel's own launch.  ``bsr_spmv``'s
-   14 ms launches are timed with CUDA events.
+   6–12 ms launches, its plain version and its library yardstick are
+   timed with CUDA events around 10 back-to-back calls (3 for the plain
+   version; the profiler's per-event mean has missed and split records
+   of them, and events around one call count the host's launch time);
+   every instance's row carries the profiler's time beside, the grid,
+   block, registers and shared memory of its profiled launches (trace),
+   held against the tile plan the wrapper launched with, and the CTAs an
+   SM (``bsr_spmv_occupancy``).
 
 It prints JSON lines (sizes, memory, times, checks, the kernel table
 line), the ``nvidia-smi`` name and power limit, and last
@@ -81,6 +90,8 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
+import itertools
 import json
 import pathlib
 import statistics
@@ -189,6 +200,24 @@ def cuda_ms(fn, reps: int) -> list[float]:
 
 def median_ms(fn, reps: int) -> float:
     return statistics.median(cuda_ms(fn, reps))
+
+
+def burst_ms(fn, reps: int) -> float:
+    """Device time (ms) a call of ``fn()``, by CUDA events around ``reps``
+    back-to-back calls after one warm-up call: the host enqueues ahead of
+    the device, so of the host's own time only the first call's launch
+    latency counts, a ``reps``-th of it (around a single call it all
+    counts)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def is_device_event(e) -> bool:
@@ -363,17 +392,20 @@ def graph_path(gen, lines: list):
     # -- phase 2: kernel vs plain version, per semiring --------------------
     bsr_spmv = reset_launches()[0]
     semiring_err = {}
-    for sr in ("plus_times", "min_plus", "or_and"):
-        cols, blocks, x = random_layout(gen, sr)
-        got = bsr_spmv(cols, blocks, x, sr)
-        want = bsr_spmv_ref(cols, blocks, x, sr)
-        torch.cuda.synchronize()
-        if sr == "plus_times":
-            close(got, want, dict(rtol=1e-5, atol=0.0), sr)
-        else:
-            check(torch.equal(got, want), f"{sr}: kernel != plain bitwise")
-        fin = torch.isfinite(want)
-        semiring_err[sr] = float((got[fin] - want[fin]).abs().max())
+    for bm in (BM, 30):
+        for sr in ("plus_times", "min_plus", "or_and"):
+            tag = sr if bm == BM else f"{sr}_bm{bm}"
+            cols, blocks, x = random_layout(gen, sr, bm=bm)
+            got = bsr_spmv(cols, blocks, x, sr)
+            want = bsr_spmv_ref(cols, blocks, x, sr)
+            torch.cuda.synchronize()
+            if sr == "plus_times":
+                close(got, want, dict(rtol=1e-5, atol=0.0), tag)
+            else:
+                check(torch.equal(got, want),
+                      f"{tag}: kernel != plain bitwise")
+            fin = torch.isfinite(want)
+            semiring_err[tag] = float((got[fin] - want[fin]).abs().max())
     log(f"phase 2: bsr_spmv == plain per semiring, max_abs_err "
         f"{semiring_err}")
 
@@ -419,11 +451,14 @@ def graph_path(gen, lines: list):
 
     x = torch.rand((p, R * BM), generator=gen, device="cuda")
     y = bsr_spmv(bsr.cols, bsr.blocks, x)
-    kernel_ms = median_ms(lambda: bsr_spmv(bsr.cols, bsr.blocks, x), 10)
+    kernel_ms = burst_ms(lambda: bsr_spmv(bsr.cols, bsr.blocks, x), 10)
+    times = timing(lambda: bsr_spmv(bsr.cols, bsr.blocks, x), 10, bsr_spmv,
+                   "bsr_spmv_kernel")
+    launch = spmv_launch(bsr, x, times["launch"], "float32")
     y_plain = bsr_spmv_ref(bsr.cols, bsr.blocks, x)
     close(y, y_plain, dict(rtol=1e-5, atol=1e-6), "bsr_spmv on the layout")
     max_abs_err = max_err(y, y_plain)
-    plain_ms = median_ms(lambda: bsr_spmv_ref(bsr.cols, bsr.blocks, x), 3)
+    plain_ms = burst_ms(lambda: bsr_spmv_ref(bsr.cols, bsr.blocks, x), 3)
     # yardstick, never called by the port: one batched matmul over every
     # ELL slot, then the sum over K (einsum would copy the blocks)
     xg = x.view(p, R, BM)[torch.arange(p, device="cuda")[:, None, None],
@@ -435,7 +470,7 @@ def graph_path(gen, lines: list):
             p, R, K, BM).sum(dim=2)
     close(library().view(p, -1), y_plain, dict(rtol=1e-5, atol=1e-6),
           "bsr_spmv library yardstick")
-    library_ms = median_ms(library, 10)
+    library_ms = burst_ms(library, 10)
     nbytes = 4 * (bsr.blocks.numel() + bsr.cols.numel() + x.numel()
                   + y.numel())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -466,7 +501,8 @@ def graph_path(gen, lines: list):
         "replaces": "src/repro/kernels/bsr_spmv/kernel.py:70",
         "launches": launches, "launches_per_superstep": launches / ITERS,
         "max_abs_err": max_abs_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "profiler_ms": times["ms"], "profiler_kernels": times["kernels"],
+        **launch, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "library": "torch.matmul (p*R*K,bm,bm)@(p*R*K,bm,1) + sum over K",
@@ -480,6 +516,25 @@ def graph_path(gen, lines: list):
 
 def within_bounds(y, lo, hi) -> bool:
     return bool(((lo <= y) & (y <= hi)).all())
+
+
+def spmv_launch(bsr, x, got: dict, dtype: str) -> dict:
+    """What a ``bsr_spmv`` row of the kernels line reports of its timed
+    launches: the tile plan the wrapper launched with, the grid, block,
+    registers and shared memory the trace records (``got``, held against
+    the plan), and the CTAs an SM the CUDA runtime reports for that
+    launch."""
+    from repro_torch.kernels.bsr_spmv import kernel as k_spmv
+    plan = k_spmv.launch_plan(bsr.cols, bsr.blocks, x)
+    per_sm = k_spmv.occupancy(x.device, x.dtype, "plus_times", BM, plan)
+    check([got.get("grid"), got.get("block"), got.get("shared memory")]
+          == [[plan.grid, 1, 1], [plan.threads, 1, 1], plan.smem],
+          f"bsr_spmv {dtype}: the traced launch {got} is not the plan's "
+          f"{plan}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"launch": got, "plan": dataclasses.asdict(plan),
+            "ctas_per_sm": per_sm, "sms": sms,
+            "waves": plan.grid / (sms * per_sm)}
 
 
 def hold_16bit(got, want, cols, blocks, x, sr: str, what: str) -> dict:
@@ -504,17 +559,20 @@ def hold_16bit(got, want, cols, blocks, x, sr: str, what: str) -> dict:
 
 def hold_16bit_kernel(gen) -> dict:
     """Phase 2b: the bf16 and f16 instances of ``bsr_spmv`` against their
-    plain versions on random layouts at bm = 128, per semiring."""
+    plain versions on random layouts at bm = 128 and 30, per semiring."""
     from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
     errs = {}
-    for dtype in (torch.bfloat16, torch.float16):
+    for bm, dtype in itertools.product((BM, 30),
+                                       (torch.bfloat16, torch.float16)):
         for sr in ("plus_times", "min_plus", "or_and"):
-            cols, blocks, x = random_layout(gen, sr)
+            cols, blocks, x = random_layout(gen, sr, bm=bm)
             blocks, x = blocks.to(dtype), x.to(dtype)
             got = bsr_spmv(cols, blocks, x, sr)
             want = bsr_spmv_ref(cols, blocks, x, sr)
             torch.cuda.synchronize()
             tag = f"{sr}_{str(dtype).split('.')[-1]}"
+            if bm != BM:
+                tag += f"_bm{bm}"
             errs[tag] = hold_16bit(got, want, cols, blocks, x, sr,
                                    tag)["max_abs_err"]
     return errs
@@ -844,14 +902,19 @@ def low_precision_pagerank(gen, lines: list) -> list:
                   f"passed the hold")
         hold["planted_faults_rejected"] = sorted(faults)
         del lo, hi, faults, bad
+        # times by CUDA events around back-to-back calls, as the float32
+        # row's: for these 6 ms launches the profiler's per-event mean has
+        # missed and split records (PERF.md); its profile gives the trace
+        # and profiler_ms
         times = timing(lambda: bsr_spmv(bsr.cols, bsr.blocks, x), 10,
                        bsr_spmv, "bsr_spmv_kernel")
-        # the same bytes through the (min,+) instance, which folds in each
-        # lane and runs no per-slot shuffle tree: what that tree costs
-        min_plus_ms = timing(lambda: bsr_spmv(bsr.cols, bsr.blocks, x,
-                                              "min_plus"), 10, bsr_spmv,
-                             "bsr_spmv_kernel")["ms"]
-        plain_ms = device_ms(lambda: bsr_spmv_ref(bsr.cols, bsr.blocks, x),
+        kernel_ms = burst_ms(lambda: bsr_spmv(bsr.cols, bsr.blocks, x), 10)
+        launch = spmv_launch(bsr, x, times["launch"], dtype)
+        # the same bytes through the (min,+) instance, which rounds no slot
+        # sum: what the 16-bit (+,×) rounding contract costs
+        min_plus_ms = burst_ms(lambda: bsr_spmv(bsr.cols, bsr.blocks, x,
+                                                 "min_plus"), 10)
+        plain_ms = burst_ms(lambda: bsr_spmv_ref(bsr.cols, bsr.blocks, x),
                              3)
         xg = x.view(p, R, BM)[torch.arange(p, device="cuda")[:, None, None],
                               bsr.cols.long()]
@@ -860,7 +923,7 @@ def low_precision_pagerank(gen, lines: list) -> list:
         def library():
             return torch.matmul(flat_blocks, xg.view(-1, BM, 1)).view(
                 p, R, K, BM).sum(dim=2)
-        library_ms = device_ms(library, 10)
+        library_ms = burst_ms(library, 10)
         nbytes = (bsr.blocks.numel() * bsr.blocks.element_size()
                   + 4 * bsr.cols.numel()
                   + (x.numel() + y.numel()) * x.element_size())
@@ -899,8 +962,9 @@ def low_precision_pagerank(gen, lines: list) -> list:
             "replaces": "src/repro/kernels/bsr_spmv/kernel.py:70",
             "dtype": dtype, "launches": fused["traced"],
             "launches_fused": fused, "launches_stepwise": step_launches,
-            "max_abs_err": hold["max_abs_err"], "ms": times["ms"],
-            "kernel_ms": times["ms"], "launch": times["launch"],
+            "max_abs_err": hold["max_abs_err"], "ms": kernel_ms,
+            "kernel_ms": kernel_ms, "profiler_ms": times["ms"],
+            "profiler_kernels": times["kernels"], **launch,
             "ms_min_plus_same_bytes": min_plus_ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -909,7 +973,7 @@ def low_precision_pagerank(gen, lines: list) -> list:
                        f"+ sum over K"})
         log(f"phase 4d: {what} {steps} steps, vs float32 "
             f"{err / scale:.3g}·max(pr), vs plain run "
-            f"{d_plain / scale:.3g}·max(pr); bsr_spmv {times['ms']:.3f} ms "
+            f"{d_plain / scale:.3g}·max(pr); bsr_spmv {kernel_ms:.3f} ms "
             f"(bound {max(bytes_ms, ops_ms):.3f}, library {library_ms:.3f}), "
             f"peak {peak / 1e9:.1f} GB")
         del spec, bsr, runner, x, y, y_plain, xg, flat_blocks
@@ -1183,7 +1247,6 @@ def bf16_readings(cfg, params, prompts, tokens, logits) -> dict:
 def serve_model(arch: str, lines: list) -> dict:
     """Serve ``arch`` at its published config; returns its launch counts
     and times."""
-    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_cache, init_params
     from repro_torch.serve import generate
