@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases (every check is stated with its tolerance; any failed check makes
 the script exit non-zero after it has printed what it measured):
@@ -42,6 +42,23 @@ the script exit non-zero after it has printed what it measured):
    two planted faults must fail the hold, and timed;
    4e. ``triangle_count`` against the oracle at ``rmat:15``
    (at ``graph500:16`` nearly every edge takes the host fallback);
+   4f. the paper's comparison at ``graph500:16`` on the default cluster:
+   each of hash, dbh, greedy, hdrf, ebv, ne, metis and windgp through the
+   CLI entry with ``pallas`` PageRank, within 1e-5·max(pr) of ``scatter``,
+   and SSSP from the hub bitwise equal to ``scatter``, with the host
+   partition seconds, TC, RF, the layout's R, K, GB and build seconds,
+   both supersteps and the peak memory, one layout at a time;
+   4g. the out-of-core route: ``graph500:16``'s edge list written under
+   ``build/``, streamed through the CLI (``--stream --method hdrf --dedup
+   two_pass --out-dir D --pagerank --backend pallas``) with PageRank held
+   as in 4f on the runtime packed from the shards; ``--workers 4
+   --sync-blocks 1`` in a fresh process, its shards byte-equal to the
+   one-worker run's; ``--compact D``;
+   4h. dynamic repartitioning seeded from D: 3 epochs of inserts and
+   deletes of 1 % of E each, drawn from ``--seed``, through
+   ``StreamAssignment.apply_delta`` and ``PartitionRuntime.apply_delta``,
+   whose runtime must equal a fresh ``from_stream`` repack field for
+   field, with SSSP on ``pallas`` bitwise equal to ``scatter`` on it;
 5. hold ``decode_attn`` and ``ssd`` against their plain versions in
    float32 and bfloat16, on edge inputs: ``decode_attn`` at the serving
    batch and widths, so with the main path's split plan, ragged lengths on
@@ -135,6 +152,17 @@ PR_LOW_VS_F32_REL = {"bfloat16": 1e-2, "float16": 5e-2}
 # triangle counting (phase 4e): the reference's ELL bound, and the graph
 TRI_MAX_DEGREE = 64
 TRI_GRAPH = "rmat:15"
+
+# the paper's comparison (phase 4f): every method it compares WindGP with,
+# at the graph path's graph and cluster
+METHODS = ("hash", "dbh", "greedy", "hdrf", "ebv", "ne", "metis", "windgp")
+
+# the out-of-core route and dynamic repartitioning (phases 4g, 4h)
+STREAM_METHOD = "hdrf"
+STREAM_WORKERS = 4
+WORKERS_TIMEOUT_S = 300      # the --workers subprocess (it forks)
+EPOCHS = 3
+CHURN = 0.01                 # inserts and deletes an epoch, each 1 % of E
 
 # the LM serving traffic: 8 prompts of 2048 tokens, 64 new tokens each
 BATCH, PROMPT, NEW = 8, 2048, 64
@@ -1020,6 +1048,288 @@ def triangle_phase(g, lines: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 4f-4h: the partition front end feeding bsr_spmv
+# ---------------------------------------------------------------------------
+
+def pagerank_hold(rt, pr, what: str) -> float:
+    """PageRank on ``pallas`` against ``scatter`` on the same runtime,
+    within 1e-5·max(pr) (phase 3's hold)."""
+    from repro_torch.bsp import pagerank
+    pr_s, _ = pagerank(rt, num_iters=ITERS, backend="scatter")
+    d = float(np.abs(pr - pr_s).max())
+    check(bool(np.isfinite(pr).all()) and d <= 1e-5 * float(pr.max()),
+          f"{what}: pagerank pallas vs scatter {d}")
+    return d
+
+
+def sssp_hold(rt, source: int, what: str) -> int:
+    """SSSP from ``source`` on ``pallas`` bitwise against ``scatter``;
+    returns the kernel's launches in the pallas run."""
+    from repro_torch.bsp import sssp
+    (got, acts), launches, _ = counted(
+        lambda: sssp(rt, source=source, num_iters=SPARSE_ITERS,
+                     backend="pallas", block_size=BM))
+    want, acts_s = sssp(rt, source=source, num_iters=SPARSE_ITERS)
+    check(np.array_equal(got, want) and np.array_equal(acts, acts_s),
+          f"{what}: sssp pallas != scatter bitwise")
+    check(launches == SPARSE_ITERS, f"{what}: sssp launched bsr_spmv "
+          f"{launches} times in {SPARSE_ITERS} supersteps")
+    rt.clear_bsr_cache()
+    return launches
+
+
+def layout_bound_ms(bsr) -> float:
+    """The float32 kernel's bytes bound on a layout (x and y included)."""
+    p, R, K = bsr.cols.shape
+    nbytes = 4 * (bsr.blocks.numel() + bsr.cols.numel() + 2 * p * R * BM)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def paper_comparison(lines: list) -> dict:
+    """Phase 4f: each method of the paper's comparison through the CLI
+    entry (``--method m --pagerank --backend pallas``) at the graph path's
+    graph and cluster; per method its partition, its float32 layout, the
+    ``pallas`` and ``scatter`` PageRank supersteps on one runtime, and the
+    holds: PageRank within 1e-5·max(pr) of ``scatter``, SSSP from the hub
+    bitwise equal to ``scatter``.  One layout at a time."""
+    from repro_torch.bsp import build_pagerank
+    from repro_torch.core import partitioners
+    from repro_torch.launch import partition as cli
+    check(set(METHODS) <= set(partitioners.names(exclude={"oracle"})),
+          f"the registry lacks a method of {METHODS}")
+    out = {}
+    for m in METHODS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches, wall = counted(lambda: cli.run(
+            ["--graph", GRAPH, "--method", m, "--pagerank",
+             "--pagerank-iters", str(ITERS), "--backend", "pallas",
+             "--device", "cuda"]))
+        check(launches == ITERS, f"{m}: pagerank launched bsr_spmv "
+              f"{launches} times in {ITERS} supersteps")
+        rt = res.runtime
+        d_scatter = pagerank_hold(rt, res.pagerank, m)
+        rt.clear_bsr_cache()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bsr = rt.local_bsr(block_size=BM, semiring="plus_times",
+                           weights="weight")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _, R, K = bsr.cols.shape
+        step_ms = {}
+        for backend, opts in (("pallas", {"block_size": BM}),
+                              ("scatter", {})):
+            spec = build_pagerank(rt, backend=backend, **opts)
+            state = [spec.state]
+
+            def step():
+                state[0], _ = spec.superstep(state[0], spec.static)
+            step_ms[backend] = median_ms(step, 10)
+        layout_gb = 4 * bsr.blocks.numel() / 1e9
+        bound_ms = layout_bound_ms(bsr)
+        del spec, state, bsr
+        rt.clear_bsr_cache()
+        torch.cuda.empty_cache()
+        sssp_launches = sssp_hold(rt, hub(res.graph), m)
+        peak = torch.cuda.max_memory_allocated()
+        out[m] = {"host_partition_s": res.report["seconds"],
+                  "TC": res.report["TC"], "RF": res.report["RF"],
+                  "feasible": res.report["feasible"],
+                  "vmax": rt.vmax, "emax": rt.emax,
+                  "replicas": rt.num_replicas,
+                  "R": R, "K": K, "layout_gb": layout_gb,
+                  "layout_build_s": build_s,
+                  "pallas_superstep_ms": step_ms["pallas"],
+                  "scatter_superstep_ms": step_ms["scatter"],
+                  "kernel_bound_ms": bound_ms,
+                  "cli_wall_s": wall, "max_memory_allocated_gb": peak / 1e9,
+                  "pagerank_max_abs_vs_scatter": d_scatter,
+                  "launches": {"pagerank": launches, "sssp": sssp_launches}}
+        log(f"phase 4f: {m} partition {res.report['seconds']}s TC "
+            f"{res.report['TC']} RF {res.report['RF']}, layout R={R} K={K} "
+            f"{layout_gb:.1f} GB built in {build_s:.2f}s, superstep pallas "
+            f"{step_ms['pallas']:.3f} ms scatter {step_ms['scatter']:.3f} "
+            f"ms, peak {peak / 1e9:.1f} GB")
+        del res, rt
+        torch.cuda.empty_cache()
+    lines.append({"paper_comparison": {"graph": GRAPH, "bm": BM,
+                                       "methods": out}})
+    return out
+
+
+def runtime_fields_equal(a, b) -> bool:
+    from repro_torch.convert import RUNTIME_ARRAYS
+    return all(getattr(a, f) == getattr(b, f)
+               for f in ("p", "num_vertices", "num_replicas")) and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        and getattr(a, f).dtype == getattr(b, f).dtype
+        for f in RUNTIME_ARRAYS)
+
+
+def stream_route(lines: list):
+    """Phase 4g: the out-of-core route at the graph path's graph.  Its edge
+    list is written under ``build/`` and streamed through the CLI entry
+    (``--stream --method hdrf --dedup two_pass --out-dir D --pagerank
+    --backend pallas``); PageRank is held against ``scatter`` on the
+    runtime packed from the shards.  Then ``--workers 4 --sync-blocks 1``
+    in a fresh process (the pipeline forks, and this one holds a CUDA
+    context), whose shards must equal the one-worker run's byte for byte,
+    and ``--compact D``.  Returns (D, the runtime, the launches)."""
+    import os
+    import shutil
+
+    from repro_torch.data import write_edge_list
+    from repro_torch.launch import partition as cli
+    work = ROOT / "build" / "chip_smoke_stream"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    g = cli.load_graph(GRAPH)
+    path = work / "edges.txt"
+    t0 = time.perf_counter()
+    write_edge_list(g, str(path))
+    write_s = time.perf_counter() - t0
+    argv = ["--graph", str(path), "--stream", "--method", STREAM_METHOD,
+            "--dedup", "two_pass"]
+    one, four = work / "w1", work / "w4"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(lambda: cli.run(
+        [*argv, "--out-dir", str(one), "--pagerank", "--pagerank-iters",
+         str(ITERS), "--backend", "pallas", "--device", "cuda"]))
+    check(launches == ITERS, f"stream: pagerank launched bsr_spmv "
+          f"{launches} times in {ITERS} supersteps")
+    check(res.report["spill"]["duplicate_rows"] == 0
+          and sum(res.report["edges_per_machine"]) == g.num_edges,
+          f"stream: {res.report['edges_per_machine']} edges placed of "
+          f"{g.num_edges}")
+    rt = res.runtime
+    bsr = rt.local_bsr(block_size=BM, semiring="plus_times",
+                       weights="weight")
+    _, R, K = bsr.cols.shape
+    layout_gb = 4 * bsr.blocks.numel() / 1e9
+    del bsr
+    d_scatter = pagerank_hold(rt, res.pagerank, "stream")
+    rt.clear_bsr_cache()
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.partition", *argv,
+         "--out-dir", str(four), "--workers", str(STREAM_WORKERS),
+         "--sync-blocks", "1"], cwd=ROOT, capture_output=True, text=True,
+        timeout=WORKERS_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    workers_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"--workers {STREAM_WORKERS} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    same = [(one / f"shard{i}.edges").read_bytes()
+            == (four / f"shard{i}.edges").read_bytes() for i in range(rt.p)]
+    check(all(same), f"--workers {STREAM_WORKERS} --sync-blocks 1 shards "
+          f"differ from the one-worker run's: {same}")
+    meta = [json.loads((d / "meta.json").read_text()) for d in (one, four)]
+    check(meta[0] == meta[1], "--workers meta differs from one worker's")
+
+    compact = cli.run(["--compact", str(one), "--device", "cuda"]).report
+    check(compact["tomb_rows_left"] == 0
+          and compact["num_edges"] == g.num_edges, f"compact {compact}")
+    out = {"graph": GRAPH, "method": STREAM_METHOD, "dedup": "two_pass",
+           "edge_list_mb": path.stat().st_size / 1e6, "write_s": write_s,
+           "stream_partition_s": res.report["seconds"], "cli_wall_s": wall,
+           "TC": res.report["TC"], "RF": res.report["RF"],
+           "spill": res.report["spill"], "R": R, "K": K,
+           "layout_gb": layout_gb, "max_memory_allocated_gb": peak / 1e9,
+           "pagerank_max_abs_vs_scatter": d_scatter, "launches": launches,
+           "workers": {"workers": STREAM_WORKERS, "sync_blocks": 1,
+                       "process_wall_s": workers_s,
+                       "shards_equal": all(same)},
+           "compact": compact}
+    log(f"phase 4g: stream {STREAM_METHOD} two_pass in "
+        f"{res.report['seconds']}s TC {res.report['TC']}, layout "
+        f"{layout_gb:.1f} GB, pallas vs scatter {d_scatter:.3g}; "
+        f"--workers {STREAM_WORKERS} in {workers_s:.1f}s, shards equal "
+        f"{all(same)}; compact {compact['seconds']}s")
+    lines.append({"stream_route": out})
+    return one, rt, launches
+
+
+def seed_from_assignment(sa):
+    """The graph of a finalized assignment's live edges (canonical order)
+    and each edge's machine: the seed of the dynamic layer."""
+    from repro_torch.core import from_edge_list
+    edges = np.concatenate([sa.machine_edges(i) for i in range(sa.p)])
+    ms = np.repeat(np.arange(sa.p), sa.edges_per)
+    g = from_edge_list(edges, sa.num_vertices)
+    order = np.argsort(edges[:, 0] * sa.num_vertices + edges[:, 1])
+    check(np.array_equal(edges[order], g.edges),
+          "the assignment's edges are not one canonical edge set")
+    return g, ms[order]
+
+
+def dynamic_phase(out_dir, rt, seed: int, lines: list) -> list:
+    """Phase 4h: a ``DynamicPartitioner`` seeded from the streamed
+    assignment; ``EPOCHS`` epochs of inserts and deletes of 1 % of E each,
+    drawn from ``seed``.  Each delta goes to ``StreamAssignment.apply_delta``
+    and then ``PartitionRuntime.apply_delta``, whose runtime must equal a
+    fresh ``from_stream`` repack field for field, with SSSP on ``pallas``
+    bitwise equal to ``scatter`` on it.  Returns the launches an epoch."""
+    from repro_torch.bsp import PartitionRuntime, StreamAssignment
+    from repro_torch.core import DynamicPartitioner, scaled_paper_cluster
+    sa = StreamAssignment.open(out_dir)
+    t0 = time.perf_counter()
+    g, assign = seed_from_assignment(sa)
+    cl = scaled_paper_cluster(3, 6, g.num_edges, slack=1.8)
+    dp = DynamicPartitioner(g, cl, assign, method=STREAM_METHOD)
+    seed_s = time.perf_counter() - t0
+    check(cl.p == rt.p and runtime_fields_equal(
+        rt, PartitionRuntime.from_stream(sa, device="cuda")),
+          "the streamed runtime differs from a repack of its assignment")
+    rng = np.random.default_rng(seed)
+    epochs, launches = [], []
+    for epoch in range(EPOCHS):
+        n = int(CHURN * dp.num_live_edges)
+        t0 = time.perf_counter()
+        snap = dp.snapshot()
+        inserted = dp.insert(rng.integers(0, dp.g.num_vertices, (n, 2)))
+        live = np.flatnonzero(dp.state.assign >= 0)
+        deleted = dp.delete(dp.g.edges[rng.choice(live, n, replace=False)])
+        delta = dp.delta_since(snap)
+        dynamic_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sa.apply_delta(delta, dp.membership(), {"epoch": epoch + 1})
+        shards_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt = rt.apply_delta(sa, delta, device="cuda")
+        delta_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = PartitionRuntime.from_stream(sa, device="cuda")
+        repack_s = time.perf_counter() - t0
+        check(runtime_fields_equal(rt, full), f"epoch {epoch + 1}: "
+              f"apply_delta != a fresh from_stream repack")
+        check(not rt._bsr_cache, "apply_delta's runtime holds a layout")
+        n_launch = sssp_hold(rt, int(np.argmax(sa.degree)),
+                             f"epoch {epoch + 1}")
+        launches.append(n_launch)
+        epochs.append({"inserted": inserted, "deleted": deleted,
+                       "changes": delta.num_changes,
+                       "machines_touched": int(
+                           delta.machines_touched(rt.p).sum()),
+                       "repairs": len(dp.repairs), "TC": dp.tc,
+                       "RF": sa.replication_factor(),
+                       "dynamic_s": dynamic_s, "shards_s": shards_s,
+                       "apply_delta_s": delta_s, "repack_s": repack_s,
+                       "sssp_launches": n_launch})
+        log(f"phase 4h: epoch {epoch + 1}: +{inserted} -{deleted}, "
+            f"{delta.num_changes} changes on "
+            f"{epochs[-1]['machines_touched']} machines, apply_delta "
+            f"{delta_s:.2f}s vs repack {repack_s:.2f}s, sssp bitwise")
+    lines.append({"dynamic": {"seed": seed, "seed_s": seed_s,
+                              "epochs": epochs}})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1460,6 +1770,12 @@ def time_ssd(gen) -> dict:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU (see the module docstring).")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 4h's inserts and deletes")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
@@ -1505,6 +1821,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     spmv_16bit = low_precision_pagerank(gen, lines)
     triangle_phase(graph, lines)
+    torch.cuda.empty_cache()
+
+    # -- phases 4f-4h: the partition front end -----------------------------
+    methods = paper_comparison(lines)
+    spmv_entry["launches_paper_comparison"] = {
+        m: r["launches"] for m, r in methods.items()}
+    out_dir, stream_rt, stream_launches = stream_route(lines)
+    spmv_entry["launches_stream_route"] = stream_launches
+    torch.cuda.empty_cache()
+    spmv_entry["launches_dynamic_sssp"] = dynamic_phase(
+        out_dir, stream_rt, args.seed, lines)
+    del stream_rt
     torch.cuda.empty_cache()
 
     # -- phase 5 ----------------------------------------------------------

@@ -5,6 +5,7 @@ synchronization is a fixed-shape reduction over the replicated-vertex
 table, whose size shrinks with partition quality.
 """
 from .partition_runtime import LocalBSR, PartitionRuntime
+from .stream_assignment import StreamAssignment, write_json_atomic
 from .backends import (BACKENDS, MESSAGE_DTYPES, EdgeBackend, get_backend,
                        frontier_entries)
 from .engine import exchange, make_fused_runner, make_step, run_bsp, \
@@ -15,7 +16,8 @@ from .apps import (APP_BUILDERS, MONOTONE_APPS, AppSpec, RunOptions,
 from . import ref
 from .simulate import simulate_runtime, simulate_superstep_times
 
-__all__ = ["PartitionRuntime", "LocalBSR",
+__all__ = ["PartitionRuntime", "LocalBSR", "StreamAssignment",
+           "write_json_atomic",
            "BACKENDS", "MESSAGE_DTYPES", "EdgeBackend", "get_backend",
            "frontier_entries", "exchange", "make_fused_runner", "make_step",
            "run_bsp", "run_bsp_fused",

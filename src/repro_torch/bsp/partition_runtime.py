@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -245,28 +246,43 @@ class PartitionRuntime:
     def create(cls, source=None, *, assign=None, p=None, cluster=None,
                method=None, edge_weights=None, device="cuda",
                **knobs) -> "PartitionRuntime":
-        """One keyword-routed constructor.
+        """One keyword-routed constructor for every runtime source.
 
         * ``create(graph, assign=assign, p=p)`` packs a runtime from an
           in-memory edge assignment; ``cluster=`` may replace ``p=``.
         * ``create(graph, method="windgp", cluster=cl, **knobs)``
           partitions through the registry first; ``knobs`` are validated
           by the registry entry.
+        * ``create(assignment_or_path)`` packs out-of-core from an on-disk
+          :class:`StreamAssignment`; ``edge_weights`` may be a callable
+          ``(edges_i, i) -> (k_i,)``.
 
         ``device`` (default ``"cuda"``) is where the apps and the blocked
         layout put their tensors; it raises if CUDA is absent.  Conflicting
-        or missing keywords raise ``ValueError``.  Packing from an on-disk
-        stream assignment is not part of this package yet.
+        or missing keywords raise ``ValueError``.  The aliases
+        :meth:`build`, :meth:`from_partitioner` and :meth:`from_stream`
+        build the same runtimes.
         """
+        from .stream_assignment import StreamAssignment
         dev = resolve_device(device)
         if source is None:
             raise ValueError(
-                "PartitionRuntime.create requires source=: a Graph, with "
-                "assign=+p=/cluster= or method=+cluster=")
+                "PartitionRuntime.create requires source=: a Graph (with "
+                "assign=+p=/cluster= or method=+cluster=), or a "
+                "StreamAssignment / its directory path")
+        if isinstance(source, (StreamAssignment, str, os.PathLike)):
+            bad = {"assign": assign, "p": p, "cluster": cluster,
+                   "method": method}
+            bad = sorted(k for k, v in bad.items() if v is not None)
+            if bad or knobs:
+                raise ValueError(
+                    f"create(source=<stream assignment>) takes only "
+                    f"edge_weights=; got {bad + sorted(knobs)}")
+            return cls._pack_from_stream(source, edge_weights, dev)
         if not (hasattr(source, "edges") and hasattr(source, "num_vertices")):
             raise ValueError(
-                f"create: source must be a Graph, got "
-                f"{type(source).__name__}")
+                f"create: source must be a Graph or a StreamAssignment "
+                f"(or its path), got {type(source).__name__}")
         if method is not None:
             if assign is not None or p is not None:
                 raise ValueError(
@@ -298,6 +314,29 @@ class PartitionRuntime:
                     "cluster= for the machine count")
             p = cluster.p
         return cls._pack_from_assignment(source, assign, p, edge_weights, dev)
+
+    @classmethod
+    def build(cls, g: Graph, assign: np.ndarray, p: int,
+              edge_weights: np.ndarray | None = None,
+              device="cuda") -> "PartitionRuntime":
+        """Thin alias of :meth:`create` (``source=g, assign=, p=``)."""
+        return cls.create(g, assign=assign, p=p, edge_weights=edge_weights,
+                          device=device)
+
+    @classmethod
+    def from_partitioner(cls, g: Graph, cluster, method: str = "windgp",
+                         edge_weights: np.ndarray | None = None,
+                         device="cuda", **knobs) -> "PartitionRuntime":
+        """Thin alias of :meth:`create` (``source=g, method=, cluster=``)."""
+        return cls.create(g, method=method, cluster=cluster,
+                          edge_weights=edge_weights, device=device, **knobs)
+
+    @classmethod
+    def from_stream(cls, assignment, edge_weights=None,
+                    device="cuda") -> "PartitionRuntime":
+        """Thin alias of :meth:`create` (``source=assignment``)."""
+        return cls.create(assignment, edge_weights=edge_weights,
+                          device=device)
 
     @classmethod
     def _pack_from_assignment(cls, g: Graph, assign: np.ndarray, p: int,
@@ -363,6 +402,159 @@ class PartitionRuntime:
             verts_per_machine=np.array([len(v) for v in locals_]),
             edges_per_machine=np.array([len(e) for e in edges_]),
             device=device)
+
+    @classmethod
+    def _pack_from_stream(cls, assignment, edge_weights,
+                          device: torch.device) -> "PartitionRuntime":
+        """Pack the runtime from an on-disk :class:`StreamAssignment`.
+
+        The out-of-core counterpart of :meth:`_pack_from_assignment`: no
+        ``Graph`` and no global edge array.  Vertex membership, global
+        degrees and the replica table come from the assignment's streamed
+        state, and each machine's shard is read one at a time, so peak
+        residency is one machine's edge set plus the fixed-shape output.
+        ``edge_weights`` may be a callable ``(edges_i, i) -> (k_i,)``.
+        """
+        from .stream_assignment import StreamAssignment
+        if not isinstance(assignment, StreamAssignment):
+            assignment = StreamAssignment.open(assignment)
+        p, V = assignment.p, assignment.num_vertices
+        member = assignment.membership()
+        deg = assignment.degree.astype(np.int32)
+
+        member_count = member.sum(axis=0).astype(np.int32)
+        rep_vertices = np.flatnonzero(member_count >= 2)
+        rep_index = np.full(V, -1, dtype=np.int32)
+        rep_index[rep_vertices] = np.arange(len(rep_vertices), dtype=np.int32)
+
+        verts_per = member.sum(axis=1).astype(np.int64)
+        edges_per = assignment.edges_per.astype(np.int64)
+        vmax = max(1, int(verts_per.max(initial=0)))
+        emax = max(1, int(edges_per.max(initial=0)))
+
+        lv = np.full((p, vmax), -1, dtype=np.int32)
+        vv = np.zeros((p, vmax), dtype=bool)
+        le = np.zeros((p, emax, 2), dtype=np.int32)
+        ev = np.zeros((p, emax), dtype=bool)
+        ew = np.zeros((p, emax), dtype=np.float32)
+        gd = np.ones((p, vmax), dtype=np.int32)
+        wd = np.ones((p, vmax), dtype=np.float32)
+        rs = np.full((p, vmax), -1, dtype=np.int32)
+        lut = np.full(V, -1, dtype=np.int64)
+        # every edge lives on exactly one machine, so the global weighted
+        # degree accumulates across the one-shard-at-a-time loop
+        wdeg = np.zeros(V, dtype=np.float64)
+        for i in range(p):
+            verts = np.flatnonzero(member[i])
+            lut[verts] = np.arange(len(verts))
+            edges_i = assignment.machine_edges(i)     # one shard at a time
+            nv, ne = len(verts), len(edges_i)
+            if ne != edges_per[i]:
+                raise ValueError(f"machine {i}: shard holds {ne} edges, "
+                                 f"the meta {edges_per[i]}")
+            lv[i, :nv] = verts
+            vv[i, :nv] = True
+            gd[i, :nv] = deg[verts]
+            rs[i, :nv] = rep_index[verts]
+            if ne:
+                le[i, :ne] = lut[edges_i]
+                ev[i, :ne] = True
+                w_i = (np.ones(ne, dtype=np.float32)
+                       if edge_weights is None
+                       else np.asarray(edge_weights(edges_i, i),
+                                       dtype=np.float32))
+                ew[i, :ne] = w_i
+                np.add.at(wdeg, edges_i[:, 0], w_i)
+                np.add.at(wdeg, edges_i[:, 1], w_i)
+        for i in range(p):
+            wd[i, vv[i]] = wdeg[lv[i, vv[i]]]
+        return cls(
+            p=p, num_vertices=V, num_replicas=len(rep_vertices),
+            local_vertex_gid=lv, vertex_valid=vv, local_edges=le,
+            edge_valid=ev, edge_weight=ew, global_degree=gd,
+            weighted_degree=wd, rep_slot=rs,
+            verts_per_machine=verts_per, edges_per_machine=edges_per,
+            device=device)
+
+    def apply_delta(self, assignment, delta,
+                    device="cuda") -> "PartitionRuntime":
+        """Repack after a dynamic epoch, reusing every untouched machine.
+
+        ``assignment`` is the :class:`StreamAssignment` (or its path)
+        *after* its ``apply_delta(delta, ...)`` ran; ``delta`` is that same
+        :class:`~repro_torch.core.dynamic.AssignmentDelta`.  Machines whose
+        edge set did not change keep their packed local-vertex and
+        local-edge rows verbatim; only changed machines re-read their shard
+        and relabel.  The replica table and global degrees are always
+        rebuilt.  The new runtime lives on ``device`` and starts with an
+        empty layout cache.
+
+        Only valid for unit edge weights (the runtimes the dynamic layer
+        produces); weighted runtimes repack via :meth:`from_stream`.
+        """
+        from .stream_assignment import StreamAssignment
+        dev = resolve_device(device)
+        if not isinstance(assignment, StreamAssignment):
+            assignment = StreamAssignment.open(assignment)
+        p, V = assignment.p, assignment.num_vertices
+        if p != self.p:
+            raise ValueError(f"delta runtime repack across machine counts "
+                             f"({self.p} -> {p})")
+        if not bool(np.all(self.edge_weight[self.edge_valid] == 1.0)):
+            raise ValueError("apply_delta supports unit edge weights only "
+                             "— repack weighted runtimes via from_stream")
+        touched = delta.machines_touched(p)
+        member = assignment.membership()
+        deg = assignment.degree.astype(np.int32)
+        member_count = member.sum(axis=0).astype(np.int32)
+        rep_vertices = np.flatnonzero(member_count >= 2)
+        rep_index = np.full(V, -1, dtype=np.int32)
+        rep_index[rep_vertices] = np.arange(len(rep_vertices),
+                                            dtype=np.int32)
+        verts_per = member.sum(axis=1).astype(np.int64)
+        edges_per = assignment.edges_per.astype(np.int64)
+        vmax = max(1, int(verts_per.max(initial=0)))
+        emax = max(1, int(edges_per.max(initial=0)))
+
+        lv = np.full((p, vmax), -1, dtype=np.int32)
+        vv = np.zeros((p, vmax), dtype=bool)
+        le = np.zeros((p, emax, 2), dtype=np.int32)
+        ev = np.zeros((p, emax), dtype=bool)
+        ew = np.zeros((p, emax), dtype=np.float32)
+        gd = np.ones((p, vmax), dtype=np.int32)
+        wd = np.ones((p, vmax), dtype=np.float32)
+        rs = np.full((p, vmax), -1, dtype=np.int32)
+        lut = np.full(V, -1, dtype=np.int64)
+        for i in range(p):
+            nv, ne = int(verts_per[i]), int(edges_per[i])
+            if not touched[i]:
+                # unchanged machine: row content beyond (nv, ne) is pad
+                lv[i, :nv] = self.local_vertex_gid[i, :nv]
+                le[i, :ne] = self.local_edges[i, :ne]
+            else:
+                verts = np.flatnonzero(member[i])
+                lut[verts] = np.arange(len(verts))
+                edges_i = assignment.machine_edges(i)
+                if len(verts) != nv or len(edges_i) != ne:
+                    raise ValueError(f"machine {i}: shard/membership "
+                                     f"disagree with the meta counts")
+                lv[i, :nv] = verts
+                if ne:
+                    le[i, :ne] = lut[edges_i]
+            vv[i, :nv] = True
+            ev[i, :ne] = True
+            ew[i, :ne] = 1.0
+            gids = lv[i, :nv]
+            gd[i, :nv] = deg[gids]
+            wd[i, :nv] = deg[gids]       # unit weights: wdeg == degree
+            rs[i, :nv] = rep_index[gids]
+        return type(self)(
+            p=p, num_vertices=V, num_replicas=len(rep_vertices),
+            local_vertex_gid=lv, vertex_valid=vv, local_edges=le,
+            edge_valid=ev, edge_weight=ew, global_degree=gd,
+            weighted_degree=wd, rep_slot=rs,
+            verts_per_machine=verts_per, edges_per_machine=edges_per,
+            device=dev)
 
     def gather_global(self, local_values: np.ndarray,
                       fill: float = 0.0) -> np.ndarray:

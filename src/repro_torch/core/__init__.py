@@ -5,6 +5,7 @@ from .machines import (Cluster, Machine, PartitionStats, evaluate,
                        replication_factor, scaled_paper_cluster)
 from .capacity import capacities, exact_capacity_relaxed, effective_cost
 from .windgp import WindGPResult, windgp
+from .dynamic import AssignmentDelta, DynamicPartitioner, RepairReport
 
 __all__ = [
     "Graph", "GrowableGraph", "from_edge_list",
@@ -13,4 +14,5 @@ __all__ = [
     "scaled_paper_cluster", "quantify_machines",
     "replication_factor", "capacities", "exact_capacity_relaxed",
     "effective_cost", "WindGPResult", "windgp",
+    "AssignmentDelta", "DynamicPartitioner", "RepairReport",
 ]

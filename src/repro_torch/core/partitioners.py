@@ -31,10 +31,9 @@ Capability tags in use:
   ``windgp(...)`` internally and exposes its knobs.
 
 Implementations self-register at import; :func:`_ensure_builtin` makes any
-entry point (CLI, tests) see the full set without import-order footguns.
-This package registers the three WindGP driver variants (``windgp``,
-``windgp_heap``, ``windgp_batched``); the baselines of the reference
-package are not part of it yet.
+entry point (CLI, benchmarks, tests) see the full set without import-order
+footguns.  The legacy ``core.baselines.PARTITIONERS`` dict is now a
+snapshot of this registry (oracles excluded).
 """
 from __future__ import annotations
 
@@ -109,6 +108,7 @@ def _ensure_builtin() -> None:
     # Deferred so the registry module itself stays import-cycle-free: the
     # implementations import ``register`` from here at their module bottom.
     from . import windgp      # noqa: F401  (registers driver variants)
+    from . import baselines   # noqa: F401  (registers streaming/ne/metis)
 
 
 def get(name: str) -> Partitioner:

@@ -133,6 +133,20 @@ def test_pagerank_tol_stops_where_the_reference_stops(runtimes):
     assert np.abs(pr_t - pr_f).max() <= 10 * tol
 
 
+def test_pallas_tol_gate_stops_where_the_reference_stops(runtimes):
+    """PageRank on ``pallas`` with ``fused=True, tol=1e-7``: the reference
+    in interpret mode, the port on the kernel's plain version.  The same
+    supersteps, and the ranks within the reference's fused tolerance."""
+    rt_ref, rt = runtimes
+    kw = dict(num_iters=60, fused=True, tol=1e-7, backend="pallas",
+              block_size=32)
+    want, acts_ref = J.pagerank(rt_ref, **kw)
+    got, acts = T.pagerank(rt, **kw)
+    assert len(acts) == len(acts_ref) < 60
+    np.testing.assert_array_equal(acts, np.asarray(acts_ref))
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=1e-5)
+
+
 def test_zero_steps_returns_0_by_p(runtimes):
     """num_steps=0: (0, p) actives and an untouched state."""
     _, rt = runtimes

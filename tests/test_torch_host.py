@@ -50,9 +50,14 @@ def test_windgp_assign_bitwise(spec, engine):
     assert a.stats.tc == b.stats.tc and a.stats.rf == b.stats.rf
 
 
-def test_registry_has_windgp_variants_only():
+def test_registry_equals_the_reference_registry():
+    from repro.core import partitioners as ref_registry
     from repro_torch.core import partitioners
-    assert partitioners.names() == ["windgp", "windgp_batched", "windgp_heap"]
+    for exclude in ((), {"oracle"}):
+        assert partitioners.names(exclude=exclude) == \
+            ref_registry.names(exclude=exclude)
+    assert {"hash", "dbh", "greedy", "hdrf", "ebv", "ne", "metis",
+            "windgp"} <= set(partitioners.names(exclude={"oracle"}))
 
 
 @pytest.fixture(scope="module")
