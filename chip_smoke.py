@@ -59,6 +59,27 @@ the script exit non-zero after it has printed what it measured):
    ``StreamAssignment.apply_delta`` and ``PartitionRuntime.apply_delta``,
    whose runtime must equal a fresh ``from_stream`` repack field for
    field, with SSSP on ``pallas`` bitwise equal to ``scatter`` on it;
+   4i. partitioned GNN sampling on 4f's WindGP (the CLI's defaults), HDRF
+   and hash partitions, one method's tables at a time: ``MachineCSC``
+   (its padded neighbour table on the card), ``SamplingService`` at
+   fanouts (10, 5) with 1024 seeds a batch, 2 batches without
+   replacement and 1 with for every home machine; the fused path bitwise
+   equal to the loop path on the same uniforms, hop 1 and the first 512
+   rows of hop 2 bitwise equal to ``sample_fanout_np``, every id a true
+   neighbour of its parent (the graph's CSR), no repeat without
+   replacement, ``min(deg, fanout)`` ids a row, ``hop_stats`` equal to a
+   host recount with ``np.unique``; ``FeatureStore`` (128 float32
+   features a vertex from ``--seed``) with a ``HaloCache`` a home (4096
+   rows, half hubs), ``gather`` bitwise equal to ``gather_global`` with
+   misses at most the hops' ``fetched_unique``; ``PrefetchPipeline`` at
+   depth 0 and 2 (6 batches, home 0, with the cache and without) bitwise
+   equal; WindGP's mean hop-1 halo fraction below hash's.  Prints, a
+   method, the CSC build seconds and table GB, minibatches/s and sampled
+   vertices/s fused and loop (median of 10 batches, synchronised wall),
+   a profile of one batch (device ms, busy share, top kernels),
+   ``gather`` ms with and without the cache, halo fractions,
+   ``fetched_unique``, the cache hit rate, the pipeline's batches/s and
+   the peak device memory;
 5. hold ``decode_attn`` and ``ssd`` against their plain versions in
    float32 and bfloat16, on edge inputs: ``decode_attn`` at the serving
    batch and widths, so with the main path's split plan, ragged lengths on
@@ -163,6 +184,18 @@ STREAM_WORKERS = 4
 WORKERS_TIMEOUT_S = 300      # the --workers subprocess (it forks)
 EPOCHS = 3
 CHURN = 0.01                 # inserts and deletes an epoch, each 1 % of E
+
+# partitioned GNN sampling (phase 4i): the reference benchmark's methods
+# (benchmarks/sampling_service.py) on phase 4f's partitions, and the
+# reference's default fanouts
+SAMPLING_METHODS = ("windgp", "hdrf", "hash")
+FANOUTS = (10, 5)
+SAMPLE_SEEDS = 1024          # seeds a minibatch
+FEAT_DIM = 128               # float32 features a vertex
+CACHE_ROWS, HUB_FRAC = 4096, 0.5
+ORACLE_HOP2_ROWS = 512       # hop-2 rows held against the numpy oracle
+TIMED_BATCHES = 10
+PIPE_BATCHES, PIPE_DEPTH = 6, 2
 
 # the LM serving traffic: 8 prompts of 2048 tokens, 64 new tokens each
 BATCH, PROMPT, NEW = 8, 2048, 64
@@ -1091,13 +1124,15 @@ def paper_comparison(lines: list) -> dict:
     graph and cluster; per method its partition, its float32 layout, the
     ``pallas`` and ``scatter`` PageRank supersteps on one runtime, and the
     holds: PageRank within 1e-5·max(pr) of ``scatter``, SSSP from the hub
-    bitwise equal to ``scatter``.  One layout at a time."""
+    bitwise equal to ``scatter``.  One layout at a time.  Returns the
+    methods' lines and (graph, cluster, the assignments of
+    ``SAMPLING_METHODS``) for phase 4i."""
     from repro_torch.bsp import build_pagerank
     from repro_torch.core import partitioners
     from repro_torch.launch import partition as cli
     check(set(METHODS) <= set(partitioners.names(exclude={"oracle"})),
           f"the registry lacks a method of {METHODS}")
-    out = {}
+    out, assigns = {}, {}
     for m in METHODS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1105,6 +1140,9 @@ def paper_comparison(lines: list) -> dict:
             ["--graph", GRAPH, "--method", m, "--pagerank",
              "--pagerank-iters", str(ITERS), "--backend", "pallas",
              "--device", "cuda"]))
+        if m in SAMPLING_METHODS:
+            assigns[m] = res.assign
+            kept = res.graph, res.cluster
         check(launches == ITERS, f"{m}: pagerank launched bsr_spmv "
               f"{launches} times in {ITERS} supersteps")
         rt = res.runtime
@@ -1156,7 +1194,7 @@ def paper_comparison(lines: list) -> dict:
         torch.cuda.empty_cache()
     lines.append({"paper_comparison": {"graph": GRAPH, "bm": BM,
                                        "methods": out}})
-    return out
+    return out, (*kept, assigns)
 
 
 def runtime_fields_equal(a, b) -> bool:
@@ -1327,6 +1365,273 @@ def dynamic_phase(out_dir, rt, seed: int, lines: list) -> list:
     lines.append({"dynamic": {"seed": seed, "seed_s": seed_s,
                               "epochs": epochs}})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: partitioned GNN sampling
+# ---------------------------------------------------------------------------
+
+def edge_keys(g) -> np.ndarray:
+    """Sorted ``u * V + v`` of every directed edge of ``g``'s CSR."""
+    V = g.num_vertices
+    src = np.repeat(np.arange(V, dtype=np.int64), np.diff(g.indptr))
+    return np.sort(src * V + g.indices.astype(np.int64))
+
+
+def hold_minibatch(g, keys, svc, mb, us, home: int, what: str) -> None:
+    """Phase 4i's holds on one minibatch, hop by hop: bitwise equal to
+    ``sample_fanout_np`` on the same uniforms (every row of hop 1, the
+    first ``ORACLE_HOP2_ROWS`` of later hops), every id a neighbour of its
+    parent in ``g``'s CSR, ``min(deg, fanout)`` ids a row and no repeat
+    without replacement (``fanout`` with it), and ``hop_stats`` equal to a
+    host recount with ``np.unique``."""
+    from repro_torch.sampling import sample_fanout_np
+    csc, V = svc.csc, g.num_vertices
+    table = csc.nbr.reshape(-1, csc.max_degree)
+    deg, rowmap, gdeg = csc.deg.reshape(-1), csc.flat_rowmap(), g.degree()
+    parent = mb.seeds.cpu().numpy()
+    for h, (fanout, hop) in enumerate(zip(svc.fanouts, mb.hops)):
+        out = hop.cpu().numpy().reshape(-1, fanout)
+        n = len(parent) if h == 0 else min(ORACLE_HOP2_ROWS, len(parent))
+        rows = np.where(parent[:n] >= 0,
+                        rowmap[np.clip(parent[:n], 0, V - 1)], -1)
+        want = sample_fanout_np(table, deg, rows, us[h][:n].cpu().numpy(),
+                                fanout, replace=svc.replace)
+        check(np.array_equal(out[:n], want), f"{what}: hop {h + 1} differs "
+              f"from sample_fanout_np on its first {n} rows")
+        ok = out >= 0
+        par = np.broadcast_to(parent[:, None], out.shape)[ok]
+        key = par.astype(np.int64) * V + out[ok]
+        at = np.searchsorted(keys, key).clip(max=len(keys) - 1)
+        check(bool((par >= 0).all() and (keys[at] == key).all()),
+              f"{what}: hop {h + 1} sampled an id that is no neighbour of "
+              f"its parent")
+        d = np.where(parent >= 0, gdeg[np.clip(parent, 0, V - 1)], 0)
+        rows_want = (np.where(d > 0, fanout, 0) if svc.replace
+                     else np.minimum(d, fanout))
+        check(np.array_equal(ok.sum(axis=1), rows_want),
+              f"{what}: hop {h + 1} rows hold other counts than "
+              f"{'fanout' if svc.replace else 'min(deg, fanout)'}")
+        if not svc.replace:
+            srt = np.sort(out, axis=1)
+            check(not ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any(),
+                  f"{what}: hop {h + 1} repeats a neighbour in a row")
+        flat = out.reshape(-1)
+        valid = flat >= 0
+        remote = valid & (csc.owner[np.clip(flat, 0, V - 1)] != home)
+        recount = (int(valid.sum()), int(remote.sum()),
+                   len(np.unique(flat[remote])))
+        check(dataclasses.astuple(mb.hop_stats[h]) == recount,
+              f"{what}: hop {h + 1} stats {mb.hop_stats[h]} != host "
+              f"recount {recount}")
+        parent = flat
+
+
+def synced(fn):
+    """``fn()`` and its wall seconds, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def batch_profile(fn, wall_ms: float, reps: int = 3) -> dict:
+    """Where a call of ``fn()`` spends the card's time: device ms a call
+    (kernels and copies, torch.profiler over ``reps`` calls), its share of
+    the call's synchronised wall ``wall_ms`` (the busy share; the rest is
+    the device idle behind the host), and the kernels that take most."""
+    events = device_events(profile_calls(fn, reps))
+    device = sum(e.self_device_time_total for e in events) / reps / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {"device_ms": device, "busy_share": device / wall_ms,
+            "top": [{"kernel": e.key[:90], "calls": e.count / reps,
+                     "ms": e.self_device_time_total / reps / 1e3}
+                    for e in top]}
+
+
+def cache_state(c) -> tuple:
+    return (c.hits, c.misses, c.evictions, c.bytes_fetched, c.lru_ids(),
+            c.hub_ids.tolist())
+
+
+def pipeline_rates(svc, store, seed: int, method: str, cached: bool
+                   ) -> dict:
+    """``PrefetchPipeline`` on home 0 at depth 0 and ``PIPE_DEPTH``, each
+    run ``PIPE_BATCHES`` batches with a fresh cache (or none): the two
+    streams and cache states must be bitwise equal.  Returns batches/s
+    (synchronised wall) at each depth."""
+    from repro_torch.sampling import HaloCache, PrefetchPipeline
+    runs = []
+    for depth in (0, PIPE_DEPTH):
+        cache = (HaloCache.for_home(store, 0, CACHE_ROWS, HUB_FRAC)
+                 if cached else None)
+
+        def run_pipeline():
+            with PrefetchPipeline(svc, home=0, batch_size=SAMPLE_SEEDS,
+                                  num_batches=PIPE_BATCHES, seed=seed,
+                                  depth=depth, store=store,
+                                  cache=cache) as pl:
+                return list(pl)
+        got, dt = synced(run_pipeline)
+        runs.append((got, cache_state(cache) if cached else None, dt))
+    (a, sa, dt0), (b, sb, dt2) = runs
+    check(len(a) == len(b) == PIPE_BATCHES and sa == sb and all(
+        all(torch.equal(x, y) for x, y in zip(ma.hops, mb.hops))
+        and ma.hop_stats == mb.hop_stats and torch.equal(fa, fb)
+        for (ma, fa), (mb, fb) in zip(a, b)),
+          f"{method}: the pipeline at depth {PIPE_DEPTH} differs from depth "
+          f"0 ({'with' if cached else 'without'} the cache)")
+    return {"depth_0": PIPE_BATCHES / dt0,
+            f"depth_{PIPE_DEPTH}": PIPE_BATCHES / dt2}
+
+
+def sample_method(g, cl, assign, method: str, seed: int, feats, keys
+                  ) -> dict:
+    """Phase 4i for one partition: its tables, the held batches of every
+    home in both replacement modes, the timings and the pipeline."""
+    from repro_torch.bsp import PartitionRuntime
+    from repro_torch.sampling import (FeatureStore, HaloCache, MachineCSC,
+                                      SamplingService, batch_generators)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    csc = MachineCSC.build(PartitionRuntime.create(g, assign=assign,
+                                                   cluster=cl, device="cuda"))
+    csc_s = time.perf_counter() - t0
+    store = FeatureStore.build(csc, feats, device="cuda")
+    caches = [HaloCache.for_home(store, h, CACHE_ROWS, HUB_FRAC)
+              for h in range(csc.p)]
+    batch = itertools.count()
+    out = {"method": method, "graph": GRAPH, "p": csc.p, "omax": csc.omax,
+           "max_degree": csc.max_degree, "csc_build_s": csc_s,
+           "fanouts": list(FANOUTS), "seeds_a_batch": SAMPLE_SEEDS,
+           "feat_dim": FEAT_DIM, "cache_rows": CACHE_ROWS,
+           "hub_frac": HUB_FRAC}
+    for replace, per_home in ((False, 2), (True, 1)):
+        mode = "with_replacement" if replace else "without_replacement"
+        svc, upload_s = synced(lambda: SamplingService(
+            csc, fanouts=FANOUTS, replace=replace, device="cuda"))
+        sizes, fracs, fetched, misses = [], [], [], []
+        for home in range(csc.p):
+            for _ in range(per_home):
+                what = f"{method} {mode} home {home}"
+                g_seed, g_hop = batch_generators(seed, next(batch), "cuda")
+                seeds = svc.local_seeds(home, SAMPLE_SEEDS, g_seed)
+                us = svc.draw_uniforms(len(seeds), g_hop)
+                mb = svc.sample_khop(seeds, us, home)
+                loop = svc.sample_khop(seeds, us, home, fused=False)
+                check(all(torch.equal(a, b)
+                          for a, b in zip(mb.hops, loop.hops))
+                      and mb.hop_stats == loop.hop_stats,
+                      f"{what}: fused != loop on the same uniforms")
+                hold_minibatch(g, keys, svc, mb, us, home, what)
+                ids = mb.all_ids()
+                rows, st = store.gather(ids, home, caches[home])
+                bound = sum(s.fetched_unique for s in mb.hop_stats)
+                check(torch.equal(rows, store.gather_global(ids))
+                      and st.misses <= bound,
+                      f"{what}: gather != gather_global or {st.misses} "
+                      f"misses above the bound {bound}")
+                sizes.append(len(seeds))
+                fracs.append(mb.halo_fracs())
+                fetched.append([s.fetched_unique for s in mb.hop_stats])
+                misses.append(st.misses)
+        fused_t, loop_t, verts, gather_t = [], [], [], {"cache": [],
+                                                        "no_cache": []}
+        for k in range(TIMED_BATCHES + 1):        # the first is a warm-up
+            i, home = next(batch), k % csc.p
+            seeds = svc.local_seeds(home, SAMPLE_SEEDS,
+                                    batch_generators(seed, i, "cuda")[0])
+            mb, dt = synced(lambda: svc.sample(
+                seeds, batch_generators(seed, i, "cuda")[1], home))
+            loop, dt_loop = synced(lambda: svc.sample(
+                seeds, batch_generators(seed, i, "cuda")[1], home,
+                fused=False))
+            check(all(torch.equal(a, b) for a, b in zip(mb.hops, loop.hops)),
+                  f"{method} {mode}: timed fused != loop")
+            ids = mb.all_ids()
+            _, dt_c = synced(lambda: store.gather(ids, home, caches[home]))
+            _, dt_n = synced(lambda: store.gather(ids, home))
+            if k:
+                fused_t.append(dt)
+                loop_t.append(dt_loop)
+                verts.append(mb.num_sampled())
+                gather_t["cache"].append(dt_c)
+                gather_t["no_cache"].append(dt_n)
+        med = statistics.median
+        i = next(batch)
+        seeds = svc.local_seeds(0, SAMPLE_SEEDS,
+                                batch_generators(seed, i, "cuda")[0])
+        profiles = {
+            name: batch_profile(lambda: svc.sample(
+                seeds, batch_generators(seed, i, "cuda")[1], 0,
+                fused=fused), 1e3 * med(times))
+            for name, fused, times in (("fused", True, fused_t),
+                                       ("loop", False, loop_t))}
+        ids = svc.sample(seeds, batch_generators(seed, i, "cuda")[1],
+                         0).all_ids()
+        profiles["gather_cache"] = batch_profile(
+            lambda: store.gather(ids, 0, caches[0]),
+            1e3 * med(gather_t["cache"]))
+        entry = {
+            "table_upload_s": upload_s,
+            "table_gb": svc._table.numel() * 4 / 1e9,
+            "batches_held": len(fracs), "seeds_min": min(sizes),
+            "halo_frac_mean_by_hop": np.mean(fracs, axis=0).tolist(),
+            "fetched_unique_mean_by_hop": np.mean(fetched, axis=0).tolist(),
+            "gather_misses_mean": float(np.mean(misses)),
+            "fused_minibatches_per_s": 1 / med(fused_t),
+            "loop_minibatches_per_s": 1 / med(loop_t),
+            "fused_sampled_vertices_per_s": med(
+                [v / t for v, t in zip(verts, fused_t)]),
+            "loop_sampled_vertices_per_s": med(
+                [v / t for v, t in zip(verts, loop_t)]),
+            "fused_ms_median": 1e3 * med(fused_t),
+            "loop_ms_median": 1e3 * med(loop_t),
+            "gather_ms_cache": 1e3 * med(gather_t["cache"]),
+            "gather_ms_no_cache": 1e3 * med(gather_t["no_cache"]),
+            "profile": profiles}
+        if not replace:
+            entry["pipeline_batches_per_s"] = {
+                "cache": pipeline_rates(svc, store, seed, method, True),
+                "no_cache": pipeline_rates(svc, store, seed, method, False)}
+        out[mode] = entry
+        del svc
+        torch.cuda.empty_cache()
+    out["cache_hit_rate_by_home"] = [c.hit_rate for c in caches]
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def sampling_phase(g, cl, assigns: dict, seed: int, lines: list) -> dict:
+    """Phase 4i: partitioned GNN sampling at the graph path's graph on
+    phase 4f's partitions (WindGP at the CLI's defaults), repacked by
+    ``PartitionRuntime.create(g, assign=...)``, one method's tables at a
+    time; WindGP's mean hop-1 halo fraction must lie below hash's."""
+    feats = np.random.default_rng(seed).standard_normal(
+        (g.num_vertices, FEAT_DIM), dtype=np.float32)
+    keys = edge_keys(g)
+    out = {}
+    for m in SAMPLING_METHODS:
+        r = sample_method(g, cl, assigns[m], m, seed, feats, keys)
+        out[m] = r
+        lines.append({"sampling": r})
+        w = r["without_replacement"]
+        log(f"phase 4i: {m} Omax {r['omax']} D {r['max_degree']}, CSC "
+            f"{r['csc_build_s']:.1f}s, table {w['table_gb']:.2f} GB; fused "
+            f"{w['fused_minibatches_per_s']:.1f} batches/s, loop "
+            f"{w['loop_minibatches_per_s']:.1f}; gather "
+            f"{w['gather_ms_cache']:.2f} ms cached "
+            f"{w['gather_ms_no_cache']:.2f} ms not; halo "
+            f"{w['halo_frac_mean_by_hop']}; peak "
+            f"{r['max_memory_allocated_gb']:.1f} GB")
+        torch.cuda.empty_cache()
+    hop1 = {m: out[m]["without_replacement"]["halo_frac_mean_by_hop"][0]
+            for m in SAMPLING_METHODS}
+    check(hop1["windgp"] < hop1["hash"], f"windgp's mean hop-1 halo "
+          f"fraction {hop1['windgp']} is not below hash's {hop1['hash']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1774,7 +2079,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase 4h's inserts and deletes")
+                    help="seed of phase 4h's inserts and deletes and of "
+                    "phase 4i's features and minibatches")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1824,7 +2130,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phases 4f-4h: the partition front end -----------------------------
-    methods = paper_comparison(lines)
+    methods, (g500, cl500, assigns) = paper_comparison(lines)
     spmv_entry["launches_paper_comparison"] = {
         m: r["launches"] for m, r in methods.items()}
     out_dir, stream_rt, stream_launches = stream_route(lines)
@@ -1833,6 +2139,11 @@ def main() -> int:
     spmv_entry["launches_dynamic_sssp"] = dynamic_phase(
         out_dir, stream_rt, args.seed, lines)
     del stream_rt
+    torch.cuda.empty_cache()
+
+    # -- phase 4i: partitioned GNN sampling --------------------------------
+    sampling_phase(g500, cl500, assigns, args.seed, lines)
+    del g500, assigns
     torch.cuda.empty_cache()
 
     # -- phase 5 ----------------------------------------------------------

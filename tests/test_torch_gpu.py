@@ -1,7 +1,9 @@
 """Port tests that need a CUDA device: the hand-written kernels against
 their plain versions, the device-built layout and PageRank against the
-same code on the CPU, and the reduced LM configs on the card against the
-CPU.  They skip where ``torch.cuda.is_available()`` is False.
+same code on the CPU, the reduced LM configs on the card against the
+CPU, and the sampling service, feature store and prefetch pipeline on
+the card against the CPU and the numpy oracle, bitwise.  They skip where
+``torch.cuda.is_available()`` is False.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine that has only the port's dependencies:
@@ -40,6 +42,9 @@ from repro_torch.kernels.decode_attn import kernel as attn_k
 from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
 from repro_torch.kernels.ssd import kernel as ssd_k
 from repro_torch.models import forward, init_params
+from repro_torch.sampling import (FeatureStore, HaloCache, MachineCSC,
+                                  PrefetchPipeline, SamplingService,
+                                  fanout_hop, sample_fanout_np)
 from repro_torch.serve import generate
 
 pytestmark = pytest.mark.gpu
@@ -519,6 +524,94 @@ def test_reduced_model_card_matches_cpu(cuda, arch):
     assert kern.launches > before
     assert torch.equal(toks.cpu(),
                        generate(cfg, on_cpu, prompts, 4, device="cpu"))
+
+
+def sampling_pair(devices, replace, fanouts=(10, 5)):
+    """A sampling service, feature store and cache on each device, over
+    one partition and one feature table."""
+    g = rmat(10, seed=42)
+    cl = scaled_paper_cluster(2, 4, g.num_edges)
+    csc = MachineCSC.build(PartitionRuntime.create(
+        g, assign=windgp(g, cl, t0=2).assign, p=cl.p, device="cpu"))
+    feats = np.random.default_rng(1).standard_normal(
+        (g.num_vertices, 16)).astype(np.float32)
+    out = []
+    for d in devices:
+        svc = SamplingService(csc, fanouts=fanouts, replace=replace,
+                              device=d)
+        store = FeatureStore.build(svc, feats, device=d)
+        out.append((svc, store, HaloCache.for_home(store, 0, capacity=256)))
+    return out
+
+
+def cache_state(c):
+    return (c.hits, c.misses, c.evictions, c.bytes_fetched, c.lru_ids(),
+            c.hub_ids.tolist())
+
+
+@pytest.mark.parametrize("replace", [False, True])
+def test_sampling_card_matches_cpu(cuda, replace):
+    """The service's fused and loop paths and the feature store with its
+    cache on the card, bitwise against the CPU on the same uniforms."""
+    (svc, store, cache), (svc_d, store_d, cache_d) = sampling_pair(
+        ("cpu", cuda), replace)
+    gen = torch.Generator().manual_seed(0)
+    for home in (0, 0, 3):
+        seeds = svc.local_seeds(home, 64, gen)
+        us = svc.draw_uniforms(len(seeds), gen)
+        want = svc.sample_khop(seeds, us, home=home)
+        for fused in (True, False):
+            got = svc_d.sample_khop(seeds, [u.to(cuda) for u in us],
+                                    home=home, fused=fused)
+            assert all(torch.equal(a.cpu(), b)
+                       for a, b in zip(got.hops, want.hops))
+            assert got.hop_stats == want.hop_stats
+        rows, st = store.gather(want.all_ids(), 0, cache)
+        rows_d, st_d = store_d.gather(got.all_ids(), 0, cache_d)
+        assert torch.equal(rows_d.cpu(), rows) and st_d == st
+        assert cache_state(cache_d) == cache_state(cache)
+        assert torch.equal(rows_d, store_d.gather_global(got.all_ids()))
+
+
+@pytest.mark.parametrize("fanout", [10, "D+2"])
+def test_fanout_hop_on_card_matches_oracle(cuda, fanout):
+    """Both selections on the card against the numpy oracle, with the
+    table's widest rows, equal keys inside a row, and a fanout above the
+    table's width."""
+    ((svc, _, _),) = sampling_pair((cuda,), False)
+    D = svc.csc.max_degree
+    fanout = D + 2 if fanout == "D+2" else fanout
+    rows = svc._rowmap_d[svc._rowmap_d >= 0]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    u = torch.rand((len(rows), max(D, fanout)), generator=gen, device=cuda)
+    u[:, 1::3] = u[:, 0::3][:, :u[:, 1::3].shape[1]]       # ties
+    want = sample_fanout_np(svc._table.cpu().numpy(),
+                            svc._deg.cpu().numpy(), rows.cpu().numpy(),
+                            u.cpu().numpy(), fanout)
+    for select in ("sort", "top_k"):
+        got = fanout_hop(svc._table, svc._deg, rows, u, fanout, False,
+                         select)
+        assert np.array_equal(got.cpu().numpy(), want), select
+
+
+def test_prefetch_pipeline_on_card_is_depth_independent(cuda):
+    """Depth 0 and depth 2 on the card give the same batches, features
+    and cache state: the two worker threads order their work on one
+    stream."""
+    ((svc, store, _),) = sampling_pair((cuda,), False)
+    streams = []
+    for depth in (0, 2):
+        cache = HaloCache.for_home(store, 0, capacity=256)
+        with PrefetchPipeline(svc, home=0, batch_size=64, num_batches=6,
+                              seed=3, depth=depth, store=store,
+                              cache=cache) as pl:
+            streams.append(([(mb, f.cpu()) for mb, f in pl],
+                            cache_state(cache)))
+    (a, sa), (b, sb) = streams
+    assert len(a) == len(b) == 6 and sa == sb
+    for (ma, fa), (mb, fb) in zip(a, b):
+        assert all(torch.equal(x, y) for x, y in zip(ma.hops, mb.hops))
+        assert ma.hop_stats == mb.hop_stats and torch.equal(fa, fb)
 
 
 # last in the file, so that a device left in a bad state by the failed

@@ -39,7 +39,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.ssd, repro_torch.core.baselines, "
             "repro_torch.core.extensions, repro_torch.core.parallel, "
             "repro_torch.core.dynamic, repro_torch.data.io, "
-            "repro_torch.bsp.stream_assignment; "
+            "repro_torch.bsp.stream_assignment, repro_torch.sampling, "
+            "repro_torch.sampling.machine_csc, repro_torch.sampling.sampler, "
+            "repro_torch.sampling.service, repro_torch.sampling.features, "
+            "repro_torch.sampling.pipeline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]; "
             "assert not bad, bad")
