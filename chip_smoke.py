@@ -80,6 +80,22 @@ the script exit non-zero after it has printed what it measured):
    ``gather`` ms with and without the cache, halo fractions,
    ``fetched_unique``, the cache hit rate, the pipeline's batches/s and
    the peak device memory;
+   4j. the multi-device BSP path on 4f's WindGP partition: 9 gloo ranks
+   (``spawn_machines``), one machine each, all on the one card, each
+   holding only its machine's layout (its own ELL width K).  Each rank
+   runs float32 PageRank on ``pallas`` stepwise and fused, SSSP, BFS (from
+   the hub) and CC on ``pallas`` and ``scatter`` stepwise and fused, and
+   bfloat16 PageRank on ``pallas``: SSSP, BFS and CC bitwise equal to
+   4b's stacked runs, actives included, float32 PageRank within
+   1e-5·max(pr) of phase 3's, bfloat16 within 4d's holds (1e-4·max(pr) of
+   4d's stacked run, within 1e-2·max(pr) of float32), every rank
+   launching ``bsr_spmv`` once a superstep (under a mesh the fused chunk
+   is not captured, so its predicated tail launches too), every rank
+   returning the same and no rank's peak memory reaching the stacked
+   layout's.  Prints per rank its K, layout GB, peak GB, kernel ms (10
+   back-to-back calls by CUDA events, the ranks taking turns) beside
+   ``simulate_superstep_times``' modelled time, and the median exchange
+   ``all_reduce`` ms and the superstep wall;
 5. hold ``decode_attn`` and ``ssd`` against their plain versions in
    float32 and bfloat16, on edge inputs: ``decode_attn`` at the serving
    batch and widths, so with the main path's split plan, ragged lengths on
@@ -228,6 +244,10 @@ REPLAY_NEW = 8
 # 1.29 and 1.34 (PERF.md).
 BF16_LOGITS_REL_L2 = {"qwen3-4b": 0.05, "mamba2-780m": 0.5}
 
+# the multi-device path (phase 4j): one machine a gloo rank, every rank on
+# the one card, the launcher's limit on the ranks' run
+MESH_TIMEOUT_S = 480
+
 FAILURES: list[str] = []
 
 
@@ -285,29 +305,40 @@ def is_device_event(e) -> bool:
     return e.device_type == torch.autograd.DeviceType.CUDA
 
 
-def profile_calls(fn, reps: int):
-    """torch.profiler over ``reps`` calls of ``fn()``.  The first launches
+def profile_calls(fn, reps: int, attempts: int = 5):
+    """torch.profiler over ``reps`` calls of ``fn()``, after one warm-up
+    call; returns (profile, calls of ``fn`` made).  The first launches
     after the profiler starts can go unrecorded, so a few spin kernels
     (``torch.cuda._sleep``) run before and after the calls; leave them out
-    with ``device_events``."""
+    with ``device_events``.  A session can also keep only its first
+    record (one spin kernel) and lose the rest; one that recorded no
+    device time outside the spin kernels is taken again, up to
+    ``attempts`` sessions, and the last one counts."""
     from torch.profiler import ProfilerActivity, profile
 
     def spin():
         for _ in range(8):
             torch.cuda._sleep(10_000)
         torch.cuda.synchronize()
+
+    def recorded(prof) -> float:
+        return sum(e.self_device_time_total for e in device_events(prof))
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        spin()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        spin()
-    check(sum(e.self_device_time_total for e in device_events(prof)) > 0,
-          "the profiler recorded no device time")
-    return prof
+    calls = 1
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            spin()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            spin()
+        calls += reps
+        if recorded(prof) > 0:
+            break
+    check(recorded(prof) > 0, "the profiler recorded no device time")
+    return prof, calls
 
 
 def device_events(prof) -> list:
@@ -322,7 +353,7 @@ def device_ms(fn, reps: int) -> float:
     copies it ran, as torch.profiler records them over ``reps`` calls.
     CUDA events around a call would also count the host's launch
     overhead, which can exceed a short kernel's own time."""
-    events = device_events(profile_calls(fn, reps))
+    events = device_events(profile_calls(fn, reps)[0])
     return sum(e.self_device_time_total for e in events) / reps / 1e3
 
 
@@ -369,10 +400,10 @@ def timing(fn, reps: int, wrapper, key: str) -> dict:
     device time a call; ``kernels``, events a call and ms an event by
     name; ``launch``, the timed launches' grid and block from the trace."""
     before = wrapper.launches
-    prof = profile_calls(fn, reps)
-    check(wrapper.launches - before == reps + 1,
+    prof, calls = profile_calls(fn, reps)
+    check(wrapper.launches - before == calls,
           f"{wrapper.__name__} launched {wrapper.launches - before} times "
-          f"for {reps + 1} calls")
+          f"for {calls} calls")
     events = device_events(prof)
     kernels = {e.key[:80]: {"events_per_call": e.count / reps,
                             "ms_per_event": e.self_device_time_total
@@ -443,9 +474,11 @@ def reset_launches():
 # phases 2-4: the graph path
 # ---------------------------------------------------------------------------
 
-def graph_path(gen, lines: list):
+def graph_path(gen, lines: list, stacked: dict):
     """Phases 2-4; returns the kernel table entry of ``bsr_spmv`` and the
-    CLI run (graph, runtime), its layout released."""
+    CLI run (graph, runtime), its layout released.  Keeps in ``stacked``
+    what phase 4j holds its ranks against: the assignment, PageRank and
+    its actives, K and the float32 layout's bytes."""
     from repro_torch.bsp import build_pagerank, pagerank, ref
     from repro_torch.kernels.bsr_spmv import bsr_spmv_ref
     from repro_torch.launch import partition as cli
@@ -540,6 +573,8 @@ def graph_path(gen, lines: list):
         f"library {library_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms")
 
     blocks_bytes = 4 * bsr.blocks.numel()
+    stacked.update(assign=res.assign, pagerank=(pr, res.actives), K=K,
+                   blocks_bytes=blocks_bytes)
     total = torch.cuda.get_device_properties(0).total_memory
     lines.append({"graph": GRAPH, "V": g.num_vertices, "E": g.num_edges,
                   "p": rt.p, "vmax": rt.vmax, "emax": rt.emax,
@@ -723,10 +758,11 @@ def hub(g) -> int:
     return int(np.argmax(g.degree()))
 
 
-def sparse_apps(g, rt, lines: list) -> dict:
+def sparse_apps(g, rt, lines: list, stacked: dict) -> dict:
     """Phase 4b: SSSP, BFS and CC at ``graph500:16`` through the pallas
     route, stepwise and fused, against ``scatter`` and the oracles; one
-    float32 layout (37.2 GB) at a time."""
+    float32 layout (37.2 GB) at a time.  Keeps each app's results and
+    actives, stepwise and fused, in ``stacked`` for phase 4j."""
     from repro_torch.bsp import (bfs, build_app, connected_components,
                                  make_fused_runner, ref, run_bsp, sssp)
     source = hub(g)
@@ -765,6 +801,7 @@ def sparse_apps(g, rt, lines: list) -> dict:
         oracle = oracles[app]()
         check(np.array_equal(res.astype(np.float64), oracle),
               f"{app}: != the numpy oracle")
+        stacked[app] = {"stepwise": (res, acts), "fused": (res_f, acts_f)}
         # CUDA events over one superstep from the initial state (the
         # pallas superstep streams the whole layout whatever the frontier)
         step_ms = median_ms(lambda: spec.superstep(spec.state, spec.static),
@@ -879,13 +916,15 @@ def frontier_phase(g, rt, lines: list) -> dict:
     return out
 
 
-def low_precision_pagerank(gen, lines: list) -> list:
+def low_precision_pagerank(gen, lines: list, stacked: dict) -> list:
     """Phase 4d: PageRank with bfloat16 messages through the CLI entry
     (``--backend pallas --message-dtype bfloat16 --fused --tol 1e-7``),
     then float16 on the same runtime; each against the same run with the
     kernel's plain version, against float32 ``scatter``, and stepwise.
     The 16-bit kernel is held and timed on its layout.  Returns the kernel
-    table rows of the two instances."""
+    table rows of the two instances.  Keeps the bfloat16 stepwise run, its
+    steps, the float32 run of as many steps and the assignment in
+    ``stacked`` for phase 4j."""
     from unittest import mock
 
     from repro_torch.bsp import backends, build_pagerank, make_fused_runner
@@ -939,6 +978,10 @@ def low_precision_pagerank(gen, lines: list) -> list:
         # the reference's fused-vs-stepwise bound for PageRank
         d_fused = float(np.abs(pr - pr_s).max())
         check(d_fused <= 1e-6, f"{what}: fused vs stepwise {d_fused}")
+        if dtype == "bfloat16":
+            stacked["pagerank_bfloat16"] = {"pr": pr_s, "steps": steps,
+                                            "float32": pr32,
+                                            "assign": res.assign}
         # the kernel on this layout: held inside its bounds, where planted
         # faults must fail; profiler time a launch, beside its plain
         # version, a library call in the dtype and its bound
@@ -1441,7 +1484,7 @@ def batch_profile(fn, wall_ms: float, reps: int = 3) -> dict:
     (kernels and copies, torch.profiler over ``reps`` calls), its share of
     the call's synchronised wall ``wall_ms`` (the busy share; the rest is
     the device idle behind the host), and the kernels that take most."""
-    events = device_events(profile_calls(fn, reps))
+    events = device_events(profile_calls(fn, reps)[0])
     device = sum(e.self_device_time_total for e in events) / reps / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     return {"device_ms": device, "busy_share": device / wall_ms,
@@ -1632,6 +1675,238 @@ def sampling_phase(g, cl, assigns: dict, seed: int, lines: list) -> dict:
     check(hop1["windgp"] < hop1["hash"], f"windgp's mean hop-1 halo "
           f"fraction {hop1['windgp']} is not below hash's {hop1['hash']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the multi-device BSP path, one machine a gloo rank on the card
+# ---------------------------------------------------------------------------
+
+def mesh_runs(source: int, bf16_steps: int) -> dict:
+    """key -> (app, kwargs) of the runs every rank of phase 4j makes."""
+    pallas = dict(backend="pallas", block_size=BM)
+    fused = dict(fused=True, chunk=CHUNK)
+    runs = {"pagerank/pallas/stepwise": ("pagerank",
+                                         dict(num_iters=ITERS, **pallas)),
+            "pagerank/pallas/fused": ("pagerank",
+                                      dict(num_iters=ITERS, **pallas,
+                                           **fused))}
+    for app in ("sssp", "bfs", "cc"):
+        base = dict(num_iters=SPARSE_ITERS)
+        if app != "cc":
+            base["source"] = source
+        for be, opts in (("pallas", pallas), ("scatter", {})):
+            runs[f"{app}/{be}/stepwise"] = (app, dict(**base, **opts))
+            runs[f"{app}/{be}/fused"] = (app, dict(**base, **opts, **fused))
+    runs["pagerank_bfloat16/pallas/stepwise"] = (
+        "pagerank", dict(num_iters=bf16_steps, message_dtype="bfloat16",
+                         **pallas))
+    return runs
+
+
+def fused_launches(steps: int, budget: int) -> int:
+    """Supersteps a fused run under a mesh launches: every superstep of
+    each chunk it ran, the predicated ones too (nothing is captured)."""
+    lengths = [min(CHUNK, budget - i) for i in range(0, budget, CHUNK)]
+    return sum(lengths[:-(-steps // CHUNK)])
+
+
+def mesh_rank(rt, mesh, runs: dict) -> dict:
+    """One rank of phase 4j (a ``spawn_machines`` rank function): each
+    run of ``runs`` with ``bsr_spmv``'s count set to 0 just before and
+    read just after; then this machine's float32 PageRank layout (K, GB),
+    its kernel timed by CUDA events with the card to itself (the ranks
+    take turns), the exchange's ``all_reduce`` of the replica buffer, and
+    the superstep wall; and the rank's peak memory."""
+    import torch.distributed as dist
+    from repro_torch.bsp import (bfs, build_pagerank, connected_components,
+                                 pagerank, run_bsp, sssp)
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    fns = {"pagerank": pagerank, "sssp": sssp, "bfs": bfs,
+           "cc": connected_components}
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "runs": {}}
+    for key, (app, kw) in runs.items():
+        torch.cuda.synchronize()
+        dist.barrier()
+        bsr_spmv.launches = 0
+        t0 = time.perf_counter()
+        res, acts = fns[app](rt, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        out["runs"][key] = {"res": res, "acts": acts,
+                            "launches": bsr_spmv.launches,
+                            "wall_s": time.perf_counter() - t0}
+    spec = build_pagerank(rt, backend="pallas", block_size=BM, mesh=mesh)
+    cols, blocks = spec.static["eb_bsr_cols"], spec.static["eb_bsr_blocks"]
+    x = torch.rand((1, cols.shape[1] * BM), device=blocks.device)
+    for r in range(mesh.size):          # one rank at a time on the card
+        torch.cuda.synchronize()
+        dist.barrier()
+        if r == mesh.rank:
+            out["kernel_ms"] = burst_ms(lambda: bsr_spmv(cols, blocks, x),
+                                        10)
+    # the exchange's all_reduce of the replica buffer on the card, and
+    # beside it the same bytes from host memory (gloo's transport alone)
+    # and their copies to the host and back (no collective)
+    # and the fused runner's gate, one element
+    buf = torch.zeros(max(1, rt.num_replicas) + 1, device=blocks.device)
+    host = torch.zeros(buf.shape)
+    gate = torch.zeros(1, device=blocks.device)
+    times = {"exchange": [], "exchange_host_buffer": [], "copies": [],
+             "gate": []}
+    for _ in range(20):
+        for what, fn in (
+                ("exchange", lambda: mesh.all_reduce(buf, "sum")),
+                ("exchange_host_buffer", lambda: mesh.all_reduce(host,
+                                                                 "sum")),
+                ("copies", lambda: buf.copy_(buf.cpu())),
+                ("gate", lambda: mesh.all_reduce(gate, "max"))):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[what].append((time.perf_counter() - t0) * 1e3)
+    run_bsp(spec.superstep, spec.state, spec.static, 1, mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    run_bsp(spec.superstep, spec.state, spec.static, ITERS, mesh=mesh)
+    torch.cuda.synchronize()
+    nbytes = (blocks.numel() * blocks.element_size() + 4 * cols.numel()
+              + 2 * x.numel() * x.element_size())
+    out.update(K=int(cols.shape[2]), R=int(cols.shape[1]),
+               layout_gb=blocks.numel() * blocks.element_size() / 1e9,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               **{f"{k}_ms_median": statistics.median(v)
+                  for k, v in times.items()},
+               superstep_wall_ms=(time.perf_counter() - t0) * 1e3 / ITERS,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def mesh_phase(g, cl, assign, stacked: dict, lines: list) -> dict:
+    """Phase 4j: the multi-device BSP path at ``graph500:16`` on phase
+    4f's WindGP partition, one machine a gloo rank, all 9 ranks on the one
+    card (time-sliced: a rehearsal of the distributed mode, not a
+    multi-GPU reading).  Each rank runs PageRank in float32 on ``pallas``
+    stepwise and fused, SSSP, BFS (from the hub) and CC on ``pallas`` and
+    ``scatter`` stepwise and fused, and bfloat16 PageRank on ``pallas``.
+    Holds: SSSP, BFS and CC bitwise equal to phase 4b's stacked runs,
+    actives included; float32 PageRank within 1e-5·max(pr) of phase 3's;
+    bfloat16 PageRank within 1e-4·max(pr) of phase 4d's stacked stepwise
+    run and within (0, 1e-2·max(pr)] of float32 (phase 4d's holds); every
+    rank launching ``bsr_spmv`` once a superstep; every rank returning the
+    same; no rank's peak memory reaching the stacked float32 layout's.
+    Returns the ranks' ``bsr_spmv`` launches on the runs by message dtype
+    (the kernel's instance): ``{dtype: [launches of rank r]}``."""
+    from repro_torch.bsp import (PartitionRuntime, simulate_superstep_times,
+                                 spawn_machines)
+    low = stacked["pagerank_bfloat16"]
+    check(np.array_equal(assign, stacked["assign"])
+          and np.array_equal(assign, low["assign"]),
+          "phase 4j: phase 4f's WindGP assignment is not phases 3 and 4d's")
+    p = cl.p
+    runs = mesh_runs(hub(g), low["steps"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_machines(mesh_rank, p, graph=g, assign=assign,
+                           args=(runs,), device="cuda",
+                           timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    first = ranks[0]["runs"]
+    for r in ranks[1:]:
+        for key, run in r["runs"].items():
+            check(np.array_equal(run["res"], first[key]["res"])
+                  and np.array_equal(run["acts"], first[key]["acts"]),
+                  f"phase 4j {key}: rank {r['rank']} differs from rank 0")
+    held = {}
+    for key, (app, kw) in runs.items():
+        res, acts = first[key]["res"], first[key]["acts"]
+        mode = key.split("/")[-1]
+        check(acts.shape[1:] == (p,), f"phase 4j {key}: actives "
+              f"{acts.shape} are not (steps, {p})")
+        if app in ("sssp", "bfs", "cc"):
+            want, want_acts = stacked[app][mode]
+            check(np.array_equal(res, want)
+                  and np.array_equal(acts, want_acts),
+                  f"phase 4j {key}: != the stacked run bitwise")
+            held[key] = "bitwise"
+        elif "message_dtype" not in kw:
+            want, want_acts = stacked["pagerank"]
+            scale = float(want.max())
+            d = float(np.abs(res - want).max())
+            check(d <= 1e-5 * scale and np.array_equal(acts, want_acts),
+                  f"phase 4j {key}: {d} from the stacked run")
+            held[key] = d / scale
+        else:
+            scale = float(low["float32"].max())
+            d = float(np.abs(res - low["pr"]).max())
+            d32 = float(np.abs(res - low["float32"]).max())
+            check(d <= PR_LOW_PLAIN_REL * scale, f"phase 4j {key}: "
+                  f"{d / scale} of max(pr) from the stacked run")
+            check(0 < d32 <= PR_LOW_VS_F32_REL["bfloat16"] * scale,
+                  f"phase 4j {key}: {d32 / scale} of max(pr) from float32")
+            held[key] = {"vs_stacked": d / scale, "vs_float32": d32 / scale}
+        if kw.get("backend") == "pallas":
+            steps = len(acts)
+            want_l = (fused_launches(steps, kw["num_iters"])
+                      if mode == "fused" else steps)
+            got_l = [r["runs"][key]["launches"] for r in ranks]
+            check(got_l == [want_l] * p, f"phase 4j {key}: ranks launched "
+                  f"bsr_spmv {got_l} times, expected {want_l} each")
+    peak = [r["peak_gb"] for r in ranks]
+    check(max(peak) * 1e9 < stacked["blocks_bytes"], f"phase 4j: a rank's "
+          f"peak {max(peak)} GB reaches the stacked layout's "
+          f"{stacked['blocks_bytes'] / 1e9} GB")
+    rt = PartitionRuntime.build(g, assign, p, device="cuda")   # host arrays
+    modelled = simulate_superstep_times(rt, cl)[0]
+    per_rank = [{"rank": r["rank"], "K": r["K"], "layout_gb": r["layout_gb"],
+                 "peak_gb": r["peak_gb"], "kernel_ms": r["kernel_ms"],
+                 "bound_ms": r["bound_ms"],
+                 "modelled_superstep": float(modelled[r["rank"]]),
+                 "exchange_ms_median": r["exchange_ms_median"],
+                 "exchange_host_buffer_ms_median":
+                     r["exchange_host_buffer_ms_median"],
+                 "copies_ms_median": r["copies_ms_median"],
+                 "gate_ms_median": r["gate_ms_median"],
+                 "superstep_wall_ms": r["superstep_wall_ms"]}
+                for r in ranks]
+    launches = {dt: [sum(r["runs"][k]["launches"] for k, (_, kw) in
+                         runs.items()
+                         if kw.get("message_dtype", "float32") == dt)
+                     for r in ranks] for dt in ("float32", "bfloat16")}
+    out = {"graph": GRAPH, "ranks": p, "backend": "gloo",
+           "devices": "cuda:0, shared", "R": ranks[0]["R"],
+           "stacked_K": stacked["K"],
+           "stacked_layout_gb": stacked["blocks_bytes"] / 1e9,
+           "layout_gb_sum": sum(r["layout_gb"] for r in ranks),
+           "kernel_ms_sum": sum(r["kernel_ms"] for r in ranks),
+           "bound_ms_sum": sum(r["bound_ms"] for r in ranks),
+           "per_rank": per_rank,
+           "exchange_all_reduce_ms_median": statistics.median(
+               r["exchange_ms_median"] for r in ranks),
+           "exchange_host_buffer_ms_median": statistics.median(
+               r["exchange_host_buffer_ms_median"] for r in ranks),
+           "gate_all_reduce_ms_median": statistics.median(
+               r["gate_ms_median"] for r in ranks),
+           "superstep_wall_ms": ranks[0]["superstep_wall_ms"],
+           "run_wall_s": {k: v["wall_s"] for k, v in first.items()},
+           "steps": {k: len(v["acts"]) for k, v in first.items()},
+           "holds": held, "spawn_wall_s": wall,
+           "launches_per_rank": launches}
+    lines.append({"mesh": out})
+    for r in per_rank:
+        log(f"phase 4j: rank {r['rank']} K={r['K']} "
+            f"{r['layout_gb']:.2f} GB, peak {r['peak_gb']:.2f} GB, kernel "
+            f"{r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f}), modelled "
+            f"{r['modelled_superstep']:.4g}")
+    log(f"phase 4j: {p} ranks in {wall:.1f}s, exchange all_reduce "
+        f"{out['exchange_all_reduce_ms_median']:.3f} ms (from host memory "
+        f"{out['exchange_host_buffer_ms_median']:.3f}, gate "
+        f"{out['gate_all_reduce_ms_median']:.3f}), superstep wall "
+        f"{out['superstep_wall_ms']:.2f} ms, K {min(r['K'] for r in per_rank)}"
+        f"-{max(r['K'] for r in per_rank)} (stacked {stacked['K']})")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2116,16 +2391,17 @@ def main() -> int:
     log(f"phase 2b: bsr_spmv bf16/f16 vs plain per semiring, max_abs_err "
         f"{errs16}")
     lines.append({"bsr_spmv_16bit_max_abs_err": errs16})
-    res, spmv_entry = graph_path(gen, lines)
+    stacked: dict = {}
+    res, spmv_entry = graph_path(gen, lines, stacked)
     torch.cuda.empty_cache()
-    apps = sparse_apps(res.graph, res.runtime, lines)
+    apps = sparse_apps(res.graph, res.runtime, lines, stacked)
     spmv_entry["launches_sparse_apps"] = {
         app: a["launches"] for app, a in apps.items()}
     frontier_phase(res.graph, res.runtime, lines)
     graph = res.graph
     del res
     torch.cuda.empty_cache()
-    spmv_16bit = low_precision_pagerank(gen, lines)
+    spmv_16bit = low_precision_pagerank(gen, lines, stacked)
     triangle_phase(graph, lines)
     torch.cuda.empty_cache()
 
@@ -2143,8 +2419,17 @@ def main() -> int:
 
     # -- phase 4i: partitioned GNN sampling --------------------------------
     sampling_phase(g500, cl500, assigns, args.seed, lines)
-    del g500, assigns
     torch.cuda.empty_cache()
+
+    # -- phase 4j: the multi-device BSP path -------------------------------
+    mesh_launches = mesh_phase(g500, cl500, assigns["windgp"], stacked,
+                               lines)
+    for entry in (spmv_entry, *spmv_16bit):
+        per_rank = mesh_launches.get(entry["dtype"])
+        if per_rank:
+            entry["launches_mesh"] = sum(per_rank)
+            entry["launches_mesh_per_rank"] = per_rank
+    del g500, assigns
 
     # -- phase 5 ----------------------------------------------------------
     reset_launches()

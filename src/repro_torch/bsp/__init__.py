@@ -10,6 +10,8 @@ from .backends import (BACKENDS, MESSAGE_DTYPES, EdgeBackend, get_backend,
                        frontier_entries)
 from .engine import exchange, make_fused_runner, make_step, run_bsp, \
     run_bsp_fused
+from .distributed import (Machines, gather_machines, machine_group,
+                          machine_slice, run_apps, spawn_machines)
 from .apps import (APP_BUILDERS, MONOTONE_APPS, AppSpec, RunOptions,
                    bfs, build_app, build_pagerank, connected_components,
                    pagerank, sssp, triangle_count)
@@ -21,6 +23,8 @@ __all__ = ["PartitionRuntime", "LocalBSR", "StreamAssignment",
            "BACKENDS", "MESSAGE_DTYPES", "EdgeBackend", "get_backend",
            "frontier_entries", "exchange", "make_fused_runner", "make_step",
            "run_bsp", "run_bsp_fused",
+           "Machines", "machine_group", "machine_slice", "gather_machines",
+           "run_apps", "spawn_machines",
            "pagerank", "sssp", "bfs", "triangle_count",
            "connected_components", "build_app", "build_pagerank", "AppSpec",
            "APP_BUILDERS", "RunOptions", "MONOTONE_APPS",

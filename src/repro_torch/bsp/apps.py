@@ -24,6 +24,13 @@ Every app wrapper runs on either engine runner: the stepwise oracle
 (``run_bsp``, default) or the fused runner (``fused=True`` / ``tol=`` →
 ``run_bsp_fused``).  ``options=RunOptions(...)`` carries the shared knobs
 in one validated object; the individual kwargs are the other spelling.
+
+``mesh=`` (a :class:`~.distributed.Machines` group or a ``ProcessGroup``
+of ``rt.p`` ranks) runs one machine a rank, as the reference's ``mesh=``
+runs one a device: each rank builds its app on its machine's slice of
+``rt`` (``distributed.machine_slice``), the exchange all-reduces across
+the ranks, and the final states are all-gathered, so every rank returns
+the same ``(V,)`` result and ``(steps, p)`` actives.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from .backends import BACKENDS, MESSAGE_DTYPES, get_backend
+from .distributed import gather_machines, local_runtime
 from .engine import run_bsp, run_bsp_fused
 from .partition_runtime import PartitionRuntime
 
@@ -147,7 +155,8 @@ class AppSpec:
 
     ``superstep(state, static) -> (state, (p,) active)`` over
     machine-stacked tensors; ``static`` already carries the backend's
-    prepared tensors.
+    prepared tensors.  Built with ``mesh``, the tensors are this rank's
+    machine's ``(1, ...)`` and ``mesh`` is its machine group.
     """
 
     name: str
@@ -155,15 +164,16 @@ class AppSpec:
     state: dict
     static: dict
     finalize: Callable        # (rt, out_state) -> global result array
+    mesh: object = None
 
 
 def _resolve(rt, backend, semiring: str, weights: str, exchange_mode: str,
-             **opts):
+             mesh=None, **opts):
     """Backend + static tree + exchange-fused combine for one app."""
     r_pad = max(1, rt.num_replicas)
     eb = get_backend(backend, **opts)
     extras, combine = eb.prepare_exchanged(rt, semiring, weights,
-                                           exchange_mode, r_pad)
+                                           exchange_mode, r_pad, mesh=mesh)
     return eb, {**_static_tree(rt), **extras}, combine
 
 
@@ -171,19 +181,30 @@ def _run(spec: "AppSpec", num_steps: int, opts: RunOptions):
     """Dispatch an :class:`AppSpec` to the stepwise or fused runner."""
     if opts.fused or opts.tol is not None:
         return run_bsp_fused(spec.superstep, spec.state, spec.static,
-                             num_steps, chunk=opts.chunk, tol=opts.tol)
-    return run_bsp(spec.superstep, spec.state, spec.static, num_steps)
+                             num_steps, mesh=spec.mesh, chunk=opts.chunk,
+                             tol=opts.tol)
+    return run_bsp(spec.superstep, spec.state, spec.static, num_steps,
+                   mesh=spec.mesh)
+
+
+def _result(spec: "AppSpec", rt: PartitionRuntime, out: dict):
+    """The app's global result from its final state; under a mesh, from
+    every rank's state, gathered."""
+    if spec.mesh is not None:
+        out = gather_machines(out, spec.mesh)
+    return spec.finalize(rt, out)
 
 
 def build_pagerank(rt: PartitionRuntime, damping: float = 0.85, *,
                    backend="scatter", init: np.ndarray | None = None,
-                   **backend_opts) -> AppSpec:
+                   mesh=None, **backend_opts) -> AppSpec:
     """``init`` warm-starts from a previous run's (V,) global PageRank;
     vertices new to this runtime fall back to the uniform mass.  Power
     iteration converges from any non-degenerate start."""
+    rt, mesh = local_runtime(rt, mesh)
     n = rt.num_vertices
     _, static, combine = _resolve(rt, backend, "plus_times", "weight",
-                                  "sum", **backend_opts)
+                                  "sum", mesh, **backend_opts)
 
     def superstep(state, sa):
         pr, vv = state["pr"], sa["vertex_valid"]
@@ -205,15 +226,17 @@ def build_pagerank(rt: PartitionRuntime, damping: float = 0.85, *,
     # teleport mass only
     fin = lambda rt, out: rt.gather_global(out["pr"].cpu().numpy(),
                                            fill=(1.0 - damping) / n)
-    return AppSpec("pagerank", superstep, {"pr": pr0}, static, fin)
+    return AppSpec("pagerank", superstep, {"pr": pr0}, static, fin, mesh)
 
 
 def pagerank(rt: PartitionRuntime, num_iters: int = 20,
-             damping: float = 0.85, *, options: RunOptions | None = None,
-             backend="scatter", init: np.ndarray | None = None,
-             fused=False, tol=None, chunk=8, **backend_opts):
+             damping: float = 0.85, *, mesh=None,
+             options: RunOptions | None = None, backend="scatter",
+             init: np.ndarray | None = None, fused=False, tol=None, chunk=8,
+             **backend_opts):
     """Returns ((V,) global PageRank, (steps, p) actives) after
-    ``num_iters`` supersteps on ``rt.device``.
+    ``num_iters`` supersteps on ``rt.device`` (under ``mesh``, this rank's
+    machine on the group's device).
 
     ``fused=True`` runs the iteration on the fused runner; ``tol``
     additionally stops once ``‖pr_{t+1} − pr_t‖∞ ≤ tol`` (and implies
@@ -222,9 +245,9 @@ def pagerank(rt: PartitionRuntime, num_iters: int = 20,
     opts, extra = _options(options, "pagerank", backend, fused, tol, chunk,
                            backend_opts)
     spec = build_pagerank(rt, damping, backend=opts.backend, init=init,
-                          **opts.backend_opts(), **extra)
+                          mesh=mesh, **opts.backend_opts(), **extra)
     out, actives = _run(spec, num_iters, opts)
-    return spec.finalize(rt, out), actives
+    return _result(spec, rt, out), actives
 
 
 def _sources(rt: PartitionRuntime, source: int) -> np.ndarray:
@@ -245,11 +268,12 @@ def _fin_dist(key: str):
 # ---------------------------------------------------------------------------
 
 def build_relax(rt: PartitionRuntime, source: int, weighted: bool, *,
-                backend="scatter", name: str = "sssp",
+                backend="scatter", name: str = "sssp", mesh=None,
                 **backend_opts) -> AppSpec:
+    rt, mesh = local_runtime(rt, mesh)
     _, static, combine = _resolve(rt, backend, "min_plus",
                                   "weight" if weighted else "unit", "min",
-                                  **backend_opts)
+                                  mesh, **backend_opts)
 
     def superstep(state, sa):
         dist, changed = state["dist"], state["changed"]
@@ -269,20 +293,21 @@ def build_relax(rt: PartitionRuntime, source: int, weighted: bool, *,
     dev = static["vertex_valid"].device
     state = {"dist": torch.from_numpy(dist0).to(dev),
              "changed": torch.from_numpy(np.isfinite(dist0)).to(dev)}
-    return AppSpec(name, superstep, state, static, _fin_dist("dist"))
+    return AppSpec(name, superstep, state, static, _fin_dist("dist"),
+                   mesh)
 
 
 def sssp(rt: PartitionRuntime, source: int = 0, num_iters: int = 30, *,
-         options: RunOptions | None = None, backend="scatter", fused=False,
-         tol=None, chunk=8, **backend_opts):
+         mesh=None, options: RunOptions | None = None, backend="scatter",
+         fused=False, tol=None, chunk=8, **backend_opts):
     """Returns ((V,) distances from ``source`` by edge weight, (steps, p)
     actives)."""
     opts, extra = _options(options, "sssp", backend, fused, tol, chunk,
                            backend_opts)
     spec = build_relax(rt, source, weighted=True, backend=opts.backend,
-                       **opts.backend_opts(), **extra)
+                       mesh=mesh, **opts.backend_opts(), **extra)
     out, actives = _run(spec, num_iters, opts)
-    return spec.finalize(rt, out), actives
+    return _result(spec, rt, out), actives
 
 
 # ---------------------------------------------------------------------------
@@ -290,12 +315,13 @@ def sssp(rt: PartitionRuntime, source: int = 0, num_iters: int = 30, *,
 # ---------------------------------------------------------------------------
 
 def build_bfs(rt: PartitionRuntime, source: int, *, backend="scatter",
-              **backend_opts) -> AppSpec:
+              mesh=None, **backend_opts) -> AppSpec:
     """Layer-synchronous BFS: the frontier (vertices discovered last
     superstep) expands through one (or, and) product per step.  Distances
     equal the (min, +) relaxation with unit weights."""
+    rt, mesh = local_runtime(rt, mesh)
     _, static, combine = _resolve(rt, backend, "or_and", "unit", "max",
-                                  **backend_opts)
+                                  mesh, **backend_opts)
 
     def superstep(state, sa):
         dist, step = state["dist"], state["step"]
@@ -309,19 +335,20 @@ def build_bfs(rt: PartitionRuntime, source: int, *, backend="scatter",
     dev = static["vertex_valid"].device
     state = {"dist": torch.from_numpy(_sources(rt, source)).to(dev),
              "step": torch.zeros(rt.p, dtype=torch.float32, device=dev)}
-    return AppSpec("bfs", superstep, state, static, _fin_dist("dist"))
+    return AppSpec("bfs", superstep, state, static, _fin_dist("dist"),
+                   mesh)
 
 
 def bfs(rt: PartitionRuntime, source: int = 0, num_iters: int = 30, *,
-        options: RunOptions | None = None, backend="scatter", fused=False,
-        tol=None, chunk=8, **backend_opts):
+        mesh=None, options: RunOptions | None = None, backend="scatter",
+        fused=False, tol=None, chunk=8, **backend_opts):
     """Returns ((V,) hop distances from ``source``, (steps, p) actives)."""
     opts, extra = _options(options, "bfs", backend, fused, tol, chunk,
                            backend_opts)
-    spec = build_bfs(rt, source, backend=opts.backend,
+    spec = build_bfs(rt, source, backend=opts.backend, mesh=mesh,
                      **opts.backend_opts(), **extra)
     out, actives = _run(spec, num_iters, opts)
-    return spec.finalize(rt, out), actives
+    return _result(spec, rt, out), actives
 
 
 # ---------------------------------------------------------------------------
@@ -329,9 +356,10 @@ def bfs(rt: PartitionRuntime, source: int = 0, num_iters: int = 30, *,
 # ---------------------------------------------------------------------------
 
 def build_components(rt: PartitionRuntime, *, backend="scatter",
-                     **backend_opts) -> AppSpec:
+                     mesh=None, **backend_opts) -> AppSpec:
+    rt, mesh = local_runtime(rt, mesh)
     _, static, combine = _resolve(rt, backend, "min_plus", "zero", "min",
-                                  **backend_opts)
+                                  mesh, **backend_opts)
 
     def superstep(state, sa):
         lab, changed = state["lab"], state["changed"]
@@ -347,21 +375,21 @@ def build_components(rt: PartitionRuntime, *, backend="scatter",
     # every valid vertex broadcasts its own label once, on superstep 1
     state = {"lab": torch.where(vv, gid.to(torch.float32), float("inf")),
              "changed": vv.clone()}
-    return AppSpec("cc", superstep, state, static, _fin_dist("lab"))
+    return AppSpec("cc", superstep, state, static, _fin_dist("lab"), mesh)
 
 
 def connected_components(rt: PartitionRuntime, num_iters: int = 30, *,
-                         options: RunOptions | None = None,
+                         mesh=None, options: RunOptions | None = None,
                          backend="scatter", fused=False, tol=None, chunk=8,
                          **backend_opts):
     """Min-label propagation; returns ((V,) component id per vertex,
     (steps, p) actives)."""
     opts, extra = _options(options, "cc", backend, fused, tol, chunk,
                            backend_opts)
-    spec = build_components(rt, backend=opts.backend,
+    spec = build_components(rt, backend=opts.backend, mesh=mesh,
                             **opts.backend_opts(), **extra)
     out, actives = _run(spec, num_iters, opts)
-    return spec.finalize(rt, out), actives
+    return _result(spec, rt, out), actives
 
 
 #: app name -> AppSpec builder

@@ -74,14 +74,17 @@ class EdgeBackend:
     prepare: Callable          # (rt, semiring, weights) -> (extras, combine)
 
     def prepare_exchanged(self, rt, semiring: str, weights: str,
-                          mode: str, r_pad: int):
+                          mode: str, r_pad: int, *, mesh=None):
         """``prepare`` with the replica :func:`~.engine.exchange` fused into
         the combine epilogue: ``combine(sa, x)`` yields post-exchange
-        neighborhood values."""
+        neighborhood values.  Under ``mesh``, ``rt`` is this rank's
+        machine (``distributed.machine_slice``) and the exchange
+        all-reduces across the ranks."""
         extras, combine = self.prepare(rt, semiring, weights)
 
         def combine_exchanged(sa, x):
-            return exchange(combine(sa, x), sa["rep_slot"], r_pad, mode)
+            return exchange(combine(sa, x), sa["rep_slot"], r_pad, mode,
+                            mesh=mesh)
 
         return extras, combine_exchanged
 

@@ -10,6 +10,12 @@ gathers the combined value back.
 
 Superstep contract: ``superstep(state, static) -> (state, (p,) active)``.
 
+Under ``mesh=`` (a :class:`~.distributed.Machines` group, the reference's
+``shard_map`` over a ``machines`` mesh axis) rank r runs machine r alone:
+its state and static tensors are ``(1, ...)``, the exchange all-reduces
+the replica buffer across the ranks, and the runners return ``(steps, p)``
+actives on every rank.
+
 Two runners iterate that contract, as in the reference:
 
 * :func:`run_bsp`: one superstep at a time, with a host sync on the
@@ -41,13 +47,16 @@ def _extreme(dtype: torch.dtype, sign: int):
 
 
 def exchange(partial: torch.Tensor, rep_slot: torch.Tensor, r_pad: int,
-             mode: str = "sum") -> torch.Tensor:
+             mode: str = "sum", *, mesh=None) -> torch.Tensor:
     """Synchronize replicated-vertex values across machines.
 
     partial: (p, Vmax) each machine's local value per local vertex;
     rep_slot: (p, Vmax) replica-table slot, -1 for single-machine vertices.
     Returns (p, Vmax) with replicated entries replaced by the cross-machine
     combination (sum / min / max); non-replicated entries pass through.
+    Under ``mesh`` p is 1 and the ``(r_pad+1,)`` buffer is all-reduced
+    across the ranks in its own dtype (the reference's ``psum``/``pmin``/
+    ``pmax``).
     """
     if mode == "sum":
         ident = 0
@@ -68,6 +77,8 @@ def exchange(partial: torch.Tensor, rep_slot: torch.Tensor, r_pad: int,
         red = "amin" if mode == "min" else "amax"
         buf.scatter_reduce_(1, slot, vals, red, include_self=True)
         tot = buf.amin(dim=0) if mode == "min" else buf.amax(dim=0)
+    if mesh is not None:
+        mesh.all_reduce(tot, mode)
     return torch.where(rep, tot[slot], partial)
 
 
@@ -81,20 +92,28 @@ def _num_machines(state) -> int:
     return next(iter(state.values())).shape[0]
 
 
-def run_bsp(superstep: Callable, state, static, num_steps: int):
+def run_bsp(superstep: Callable, state, static, num_steps: int, *,
+            mesh=None):
     """Iterate the superstep; returns (final_state, (steps, p) actives).
 
-    One host sync per superstep, on the ``(p,)`` active counts.
+    One host sync per superstep, on the ``(p,)`` active counts.  Under
+    ``mesh`` the state stays this rank's ``(1, ...)``; each rank syncs on
+    its own ``(1,)`` count, and the ranks' counts are gathered once, at
+    the end, into every rank's ``(steps, p)``.
     """
     step = make_step(superstep, static)
     actives = []
     for _ in range(num_steps):
         state, act = step(state)
-        actives.append(act.cpu().numpy())
+        actives.append(act.cpu())
     if not actives:
         # zero steps still contract to a (0, p) actives array
-        return state, np.zeros((0, _num_machines(state)))
-    return state, np.stack(actives)
+        p = _num_machines(state) if mesh is None else mesh.size
+        return state, np.zeros((0, p))
+    actives = torch.stack(actives)
+    if mesh is not None:
+        actives = mesh.all_gather(actives, dim=1)
+    return state, actives.numpy()
 
 
 def _state_residual(old: dict, new: dict) -> torch.Tensor:
@@ -119,9 +138,10 @@ class FusedRunner:
     graph's kernel nodes, which a profiler's trace records.
     """
 
-    def __init__(self, superstep: Callable, static, *, chunk: int = 8,
-                 tol: float | None = None):
+    def __init__(self, superstep: Callable, static, *, mesh=None,
+                 chunk: int = 8, tol: float | None = None):
         self.superstep, self.static = superstep, static
+        self.mesh = mesh
         self.chunk = max(1, int(chunk))
         self.tol = tol
         self.graphs: dict = {}       # chunk length -> (graph, t, buf)
@@ -129,9 +149,15 @@ class FusedRunner:
         self._io = None              # static state/done buffers (CUDA)
 
     def _done_of(self, old, new, act) -> torch.Tensor:
-        if self.tol is not None:
-            return _state_residual(old, new) <= self.tol
-        return act.sum() == 0
+        """The convergence gate; under a mesh every rank reduces its local
+        residual (MAX) or active count (SUM) first, so all agree."""
+        gate = _state_residual(old, new) if self.tol is not None \
+            else act.sum()
+        if self.mesh is not None:
+            gate = self.mesh.all_reduce(gate.reshape(1),
+                                        "max" if self.tol is not None
+                                        else "sum")[0]
+        return gate <= self.tol if self.tol is not None else gate == 0
 
     def _chunk(self, state: dict, done: torch.Tensor, length: int):
         """``length`` supersteps, each predicated on ``done``: a step after
@@ -187,14 +213,15 @@ class FusedRunner:
         return t.clone(), buf.clone()
 
     def __call__(self, state: dict, num_steps: int):
-        p = _num_machines(state)
+        p = _num_machines(state) if self.mesh is None else self.mesh.size
         if num_steps <= 0:
             return state, np.zeros((0, p))
         num_chunks = -(-num_steps // self.chunk)
         lengths = [self.chunk] * (num_chunks - 1) \
             + [num_steps - self.chunk * (num_chunks - 1)]
         dev = next(iter(state.values())).device
-        on_cuda = dev.type == "cuda"
+        # a CUDA graph cannot capture gloo's collectives
+        on_cuda = dev.type == "cuda" and self.mesh is None
         done = torch.zeros((), dtype=torch.bool, device=dev)
         if on_cuda:
             self._bind(state)
@@ -212,8 +239,10 @@ class FusedRunner:
         if on_cuda:
             state = {k: v.clone() for k, v in self._io["state"].items()}
         steps = int(torch.stack(ts).sum())
-        actives = torch.cat(bufs).cpu().numpy()[:steps]
-        return state, actives
+        acts = torch.cat(bufs).cpu()
+        if self.mesh is not None:
+            acts = self.mesh.all_gather(acts, dim=1)
+        return state, acts.numpy()[:steps]
 
     def _bind(self, state: dict) -> None:
         """Copy ``state`` into the static buffers the graphs read and
@@ -235,8 +264,9 @@ class FusedRunner:
         io["done"].fill_(False)
 
 
-def make_fused_runner(superstep: Callable, static, *, chunk: int = 8,
-                      tol: float | None = None) -> FusedRunner:
+def make_fused_runner(superstep: Callable, static, *, mesh=None,
+                      chunk: int = 8, tol: float | None = None
+                      ) -> FusedRunner:
     """Build a reusable fused runner: ``run(state, num_steps)``.
 
     The run takes ``ceil(num_steps / chunk)`` chunks of supersteps, each
@@ -262,12 +292,19 @@ def make_fused_runner(superstep: Callable, static, *, chunk: int = 8,
     (after a one-step warm-up on a side stream) and replayed; a capture
     that fails raises, and nothing falls back to eager execution.  On the
     CPU the same predicated loop runs eagerly.
+
+    Under ``mesh`` the gate reduces across the ranks (the residual by MAX,
+    the active count by SUM), so every rank agrees on ``done``, and every
+    rank runs every superstep of a chunk, with its collectives, predicated
+    or not.  The chunk runs without capture on any device, since a CUDA
+    graph cannot capture gloo's collectives; the host reads ``done`` once
+    a chunk, as without a mesh.
     """
-    return FusedRunner(superstep, static, chunk=chunk, tol=tol)
+    return FusedRunner(superstep, static, mesh=mesh, chunk=chunk, tol=tol)
 
 
 def run_bsp_fused(superstep: Callable, state, static, num_steps: int,
-                  *, chunk: int = 8, tol: float | None = None):
+                  *, mesh=None, chunk: int = 8, tol: float | None = None):
     """One fused BSP run (see :func:`make_fused_runner`).
 
     Returns ``(final_state, (steps_run, p) actives)``.  With ``tol=None``
@@ -276,5 +313,5 @@ def run_bsp_fused(superstep: Callable, state, static, num_steps: int,
     fixpoints, BFS's step counter aside) and the actives are the stepwise
     prefix (the stepwise tail is all zeros).
     """
-    return make_fused_runner(superstep, static, chunk=chunk,
+    return make_fused_runner(superstep, static, mesh=mesh, chunk=chunk,
                              tol=tol)(state, num_steps)

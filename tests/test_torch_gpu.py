@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.bsp import (PartitionRuntime, bfs, build_app,
                              connected_components, frontier_entries,
-                             make_fused_runner, pagerank, run_bsp, sssp)
+                             make_fused_runner, pagerank, run_apps, run_bsp,
+                             spawn_machines, sssp)
 from repro_torch.core import scaled_paper_cluster, windgp
 from repro_torch.data import rmat
 from repro_torch.configs import get_reduced
@@ -338,6 +339,43 @@ def test_frontier_cap_on_cuda(runtimes):
         np.testing.assert_array_equal(dense, sparse)
         np.testing.assert_array_equal(acts, acts_f)
     assert (frontier_entries(rt, rt.vertex_valid) <= cap).all()
+
+
+def mesh_rank(rt, mesh, calls):
+    """A ``spawn_machines`` rank: ``calls`` on this rank's machine, and the
+    ``bsr_spmv`` launches they made."""
+    port_k.bsr_spmv.launches = 0
+    return run_apps(rt, mesh, calls), port_k.bsr_spmv.launches
+
+
+def test_two_gloo_ranks_on_one_card_match_stacked(cuda):
+    """One machine a rank, two ranks sharing the card over gloo: SSSP
+    bitwise and PageRank within 1e-5 of the stacked run on the card, each
+    rank launching the kernel once a superstep on its own layout."""
+    g = rmat(9, seed=2)
+    cl = scaled_paper_cluster(1, 1, g.num_edges)
+    assign = windgp(g, cl, t0=2).assign
+    pallas = dict(backend="pallas", block_size=32)
+    calls = [("sssp", dict(source=0, num_iters=20, **pallas)),
+             ("sssp", dict(source=0, num_iters=20, fused=True, chunk=4,
+                           **pallas)),
+             ("pagerank", dict(num_iters=10, **pallas))]
+    by_rank = spawn_machines(mesh_rank, cl.p, graph=g, assign=assign,
+                             args=(calls,), device="cuda", timeout=300)
+    rt = PartitionRuntime.create(g, assign=assign, p=cl.p, device=cuda)
+    want = [sssp(rt, **calls[0][1]), sssp(rt, **calls[1][1]),
+            pagerank(rt, **calls[2][1])]
+    for runs, launches in by_rank:
+        for (app, _), (got, acts), (exp, exp_acts) in zip(calls, runs,
+                                                          want):
+            if app == "pagerank":
+                np.testing.assert_allclose(got, exp, atol=1e-5, rtol=1e-5)
+            else:
+                np.testing.assert_array_equal(got, exp)
+            np.testing.assert_array_equal(acts, exp_acts)
+        # stepwise: one a superstep; fused: every superstep of each chunk
+        # run, the predicated ones too (no capture under a mesh)
+        assert launches == 20 + 4 * -(-len(runs[1][1]) // 4) + 10
 
 
 TOL = {torch.float32: {"decode": dict(rtol=2e-5, atol=2e-5),

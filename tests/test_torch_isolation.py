@@ -42,10 +42,28 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.bsp.stream_assignment, repro_torch.sampling, "
             "repro_torch.sampling.machine_csc, repro_torch.sampling.sampler, "
             "repro_torch.sampling.service, repro_torch.sampling.features, "
-            "repro_torch.sampling.pipeline; "
+            "repro_torch.sampling.pipeline, repro_torch.bsp.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def forbidden_loaded(rt, mesh):
+    """A rank function: the forbidden modules the rank has loaded."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+
+
+def test_spawned_rank_leaves_jax_unloaded():
+    """A rank of ``spawn_machines`` starts afresh and loads no JAX, even
+    when the launching process has."""
+    import numpy as np
+    from repro_torch.bsp import spawn_machines
+    from repro_torch.data import rmat
+    g = rmat(5, seed=1)
+    got = spawn_machines(forbidden_loaded, 2, graph=g,
+                         assign=np.arange(g.num_edges) % 2, device="cpu",
+                         timeout=120)
+    assert got == [[], []]
