@@ -98,10 +98,14 @@ the script exit non-zero after it has printed what it measured):
    ``all_reduce`` ms and the superstep wall;
 5. hold ``decode_attn`` and ``ssd`` against their plain versions in
    float32 and bfloat16, on edge inputs: ``decode_attn`` at the serving
-   batch and widths, so with the main path's split plan, ragged lengths on
-   the split edges below a Smax that is no multiple of any block, a
+   batch and at qwen3-4b's and jamba's widths (32 heads over 8 of 128)
+   and granite's (24 over 8 of 64: G = 3, padded to 4 on the tensor
+   cores), so with the main path's split plan, ragged lengths on the
+   split edges below a Smax that is no multiple of any block, a
    ``lengths == 0`` row, and the newest key left out, which the hold must
-   reject; ``ssd`` with T no multiple of the chunk, strong decay
+   reject; ``ssd`` at mamba2-780m's widths (48 heads, ds 128) and
+   jamba's (128 heads, ds 16: half the tensor-core instance's 32 state
+   columns padding), with T no multiple of the chunk, strong decay
    (a = -5), and the final SSD state;
 6. serve qwen3-4b at its published config (bf16, 36 layers, random
    weights from a seeded generator on the card) through
@@ -113,12 +117,40 @@ the script exit non-zero after it has printed what it measured):
    decode steps gives the device time by kernel.  The bf16 check is also
    read with a wrong decode attention (query heads on the wrong KV group),
    which must exceed its limit, and with the newest key left out, which it
-   cannot see and the float32 replay must;
+   cannot see and the float32 replay must (the replay also reads the wrong
+   KV group);
 7. the same for mamba2-780m: ``ssd`` launches 48 times in the prefill,
    and the decode steps' logits (the single-step recurrence) must agree
    with ``forward`` (the kernel).  The bf16 check is also read with the
    plain SSD in ``forward`` in place of the kernel, which must pass as
    the kernel does, and with two wrong SSD functions, which must fail;
+   7b. the same for granite-moe-3b-a800m at its published config (32
+   layers, 40 experts, top 8): ``decode_attn`` launches exactly 32 × 64
+   times and ``ssd`` never.  Random weights route most tokens to a few
+   experts, so the capacity (factor 1.25) drops entries, and a token's
+   output then depends on the batch it is routed with: the decode and
+   forward holds run the same weights and prompts at a capacity that
+   drops nothing (factor E / K), with the served run's reading beside
+   them.  The bf16 check is also read with a wrong MoE combine in
+   ``forward`` (each token's K gate weights reversed across its
+   experts), which must fail, and the float32 replay with the newest key
+   left out and the wrong KV group, which must fail.  It prints the
+   entries each MoE layer's capacity dropped in the prefill and in
+   ``forward``, ``param_count`` and ``active_param_count``;
+   7c. the same for jamba-v0.1-52b at full width, its depth cut from 32
+   to 8 layers (one pattern period: 1 attention, 7 SSM, 4 MoE layers;
+   the whole model's 103 GB of bf16 weights exceed the card):
+   ``decode_attn`` launches 64 times, ``ssd`` 7 in the prefill and 7 in
+   ``forward``, and the bf16 check is read with the plain SSD (must pass),
+   the two wrong SSDs, the wrong KV group and the wrong MoE combine (must
+   fail);
+   7d. WindGP expert placement over the live router: the top-8 ids of
+   granite's MoE layers 0, 8, 16 and 24 in 7b's prefill (16,384 tokens
+   each) through ``sharding.place_experts`` on the three pods of
+   ``examples/hetero_moe_placement.py`` (memory scaled by 40/16): every
+   expert placed, no pod above its memory + 1 experts, the same placement
+   on a second call; it prints both makespans (WindGP and round-robin),
+   the co-activation graph's size and the seconds of its parts;
 8. time ``decode_attn`` at the serving shape and at S = 32768, and
    ``ssd`` at the serving shape, beside their plain versions, a library
    call where one exists, and their bounds.  These times are device time
@@ -231,18 +263,33 @@ STATE_TOL = dict(rtol=2e-4, atol=2e-4)
 # decode-vs-forward logits (phases 6 and 7).
 # float32 replay (the sharp check): the same model in float32 (TF32 off),
 # where the two paths differ only in summation order: 1e-4 relative (L2);
-# the reduced configs agree with JAX to 1e-4 on the CPU.
+# the reduced configs agree with JAX to 1e-4 on the CPU.  A MoE arch's
+# holds run at a capacity that drops nothing (``dropless``).
 F32_LOGITS_REL_L2 = 1e-4
 REPLAY_NEW = 8
 # bf16 serving run: each layer rounds its activations to bf16 (2^-9) in an
 # order that depends on the batch shape (1 token against 2112), and a
-# randomly initialised deep stack amplifies it, mamba2-780m's 48 SSM layers
-# most.  Each model's limit lies between its sound readings (for
-# mamba2-780m also the plain SSD's in place of the kernel) and the readings
-# of wrong functions that the run takes too and that must exceed it; on an
-# H100: qwen3-4b 0.0137 against 1.32, mamba2-780m 0.274 and 0.276 against
-# 1.29 and 1.34 (PERF.md).
-BF16_LOGITS_REL_L2 = {"qwen3-4b": 0.05, "mamba2-780m": 0.5}
+# randomly initialised deep stack amplifies it, the SSM layers most.  Each
+# model's limit lies between its sound readings (for the SSM archs also
+# the plain SSD's in place of the kernel) and the readings of wrong
+# functions that the run takes too and that must exceed it; on an H100:
+# qwen3-4b 0.0137 against 1.32, mamba2-780m 0.274 and 0.276 against 1.29
+# and 1.34, granite-moe-3b-a800m 0.0229 against 0.375 (wrong combine) and
+# 1.29, jamba-v0.1-52b 0.150 and 0.158 against 0.211 (wrong KV group, its
+# one attention layer in 8), 0.563, 1.06 and 1.11 (PERF.md).  The float32
+# replay holds the attention faults sharply.
+BF16_LOGITS_REL_L2 = {"qwen3-4b": 0.05, "mamba2-780m": 0.5,
+                      "granite-moe-3b-a800m": 0.1, "jamba-v0.1-52b": 0.185}
+# jamba-v0.1-52b (phase 7c): its full width at one pattern period of depth
+JAMBA_LAYERS = 8
+
+# WindGP expert placement (phase 7d): granite's MoE layers whose prefill
+# routing is placed, and the three pods of examples/hetero_moe_placement.py
+# (relative compute cost, experts a pod holds scaled by 40/16, link cost)
+PLACED_LAYERS = (0, 8, 16, 24)
+POD_COMPUTE = [0.5, 1.0, 1.0]
+POD_MEMORY = [20, 15, 15]
+POD_LINK = [1.0, 1.0, 1.5]
 
 # the multi-device path (phase 4j): one machine a gloo rank, every rank on
 # the one card, the launcher's limit on the ranks' run
@@ -1938,6 +1985,13 @@ def ssd_inputs(gen, B, T, nh, G, dh, ds, dtype, decay=None):
     return x, b, c, a
 
 
+#: (H, KVH, dh) of decode_attn's holds: qwen3-4b's and jamba's widths,
+#: and granite's (G = 3, dh 64); (nh, G, dh, ds) of ssd's: mamba2-780m's
+#: and jamba's (ds 16)
+DECODE_WIDTHS = {"": (32, 8, 128), "_granite": (24, 8, 64)}
+SSD_WIDTHS = {"": (48, 1, 64, 128), "_jamba": (128, 1, 64, 16)}
+
+
 def hold_lm_kernels(gen) -> dict:
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref)
@@ -1946,41 +2000,45 @@ def hold_lm_kernels(gen) -> dict:
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        # the serving batch and widths, Smax = 2113 (prompt + new + 1): no
-        # multiple of the 32-row tile or of the planned split; lengths on
-        # the split's edges, ragged, and a 0
-        B, H, KVH, dh, S = BATCH, 32, 8, 128, PROMPT + NEW + 1
-        q, k, v = decode_inputs(gen, B, H, KVH, dh, S, dtype)
-        split = attn_plan(q, k)["split_len"]
-        lens = torch.tensor([S, 0, 1000, 1, split - 1, split, split + 1,
-                             S - 1], dtype=torch.int32, device="cuda")
-        got = decode_attention(q, k, v, lens)
-        want = decode_attention_ref(q, k, v, lens)
-        tol = TOL[dtype]["decode"]
-        errs[f"decode_attn_{name}"] = close(got, want, tol,
-                                            f"decode_attn {name}")
-        uniform = v[1].float().mean(0).repeat_interleave(H // KVH, dim=0)
-        close(got[1], uniform, tol, f"decode_attn {name} lengths == 0")
-        # the newest key left out, on the rows that keep a key: the hold
-        # must reject it
-        kept = lens >= 2
-        wrong = exceeds(decode_attention(q, k, v, lens - 1)[kept],
-                        want[kept], tol)
-        errs[f"decode_attn_{name}_missing_newest_excess"] = wrong
-        check(wrong > 1, f"decode_attn {name}: the hold passes the newest "
-              f"key left out ({wrong} of its limit)")
-        # ssd at the mamba2 width, T = 300 (no multiple of 128), with the
-        # final state; then strong decay
-        for T, decay in ((300, None), (1000, 5.0)):
-            x, b, c, a = ssd_inputs(gen, 2, T, 48, 1, 64, 128, dtype, decay)
-            y, h = ssd_chunked(x, b, c, a, chunk=128, return_state=True)
-            y_ref, h_ref = ssd_chunked_ref(x, b, c, a, chunk=128,
-                                           return_state=True)
-            tag = f"ssd_{name}_T{T}" + ("_decay5" if decay else "")
-            errs[tag] = close(y, y_ref, TOL[dtype]["ssd"], tag)
-            errs[tag + "_state"] = close(h, h_ref, STATE_TOL,
-                                         tag + " final state")
-            check(bool(torch.isfinite(y.float()).all()), f"{tag} not finite")
+        for arch, (H, KVH, dh) in DECODE_WIDTHS.items():
+            # the serving batch, Smax = 2113 (prompt + new + 1): no
+            # multiple of the 32-row tile or of the planned split; lengths
+            # on the split's edges, ragged, and a 0
+            B, S = BATCH, PROMPT + NEW + 1
+            tag = f"decode_attn_{name}{arch}"
+            q, k, v = decode_inputs(gen, B, H, KVH, dh, S, dtype)
+            split = attn_plan(q, k)["split_len"]
+            lens = torch.tensor([S, 0, 1000, 1, split - 1, split, split + 1,
+                                 S - 1], dtype=torch.int32, device="cuda")
+            got = decode_attention(q, k, v, lens)
+            want = decode_attention_ref(q, k, v, lens)
+            tol = TOL[dtype]["decode"]
+            errs[tag] = close(got, want, tol, tag)
+            uniform = v[1].float().mean(0).repeat_interleave(H // KVH, dim=0)
+            close(got[1], uniform, tol, f"{tag} lengths == 0")
+            # the newest key left out, on the rows that keep a key: the
+            # hold must reject it
+            kept = lens >= 2
+            wrong = exceeds(decode_attention(q, k, v, lens - 1)[kept],
+                            want[kept], tol)
+            errs[f"{tag}_missing_newest_excess"] = wrong
+            check(wrong > 1, f"{tag}: the hold passes the newest key left "
+                  f"out ({wrong} of its limit)")
+        # ssd, T = 300 (no multiple of 128), with the final state; then
+        # strong decay
+        for arch, (nh, G, dh, ds) in SSD_WIDTHS.items():
+            for T, decay in ((300, None), (1000, 5.0)):
+                x, b, c, a = ssd_inputs(gen, 2, T, nh, G, dh, ds, dtype,
+                                        decay)
+                y, h = ssd_chunked(x, b, c, a, chunk=128, return_state=True)
+                y_ref, h_ref = ssd_chunked_ref(x, b, c, a, chunk=128,
+                                               return_state=True)
+                tag = f"ssd_{name}{arch}_T{T}" + ("_decay5" if decay else "")
+                errs[tag] = close(y, y_ref, TOL[dtype]["ssd"], tag)
+                errs[tag + "_state"] = close(h, h_ref, STATE_TOL,
+                                             tag + " final state")
+                check(bool(torch.isfinite(y.float()).all()),
+                      f"{tag} not finite")
     torch.cuda.synchronize()
     return errs
 
@@ -2052,16 +2110,72 @@ def profile_decode(cfg, params, cache, lens, steps: int = 3) -> dict:
 
 
 @contextlib.contextmanager
-def model_calls(name: str, fn):
-    """Run the model with ``models.layers.<name>`` (a kernel's wrapper)
-    replaced by ``fn``."""
-    from repro_torch.models import layers
-    kept = getattr(layers, name)
-    setattr(layers, name, fn)
+def swapped(module, name: str, fn):
+    """Run with ``module.<name>`` replaced by ``fn``."""
+    kept = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        setattr(layers, name, kept)
+        setattr(module, name, kept)
+
+
+def model_calls(name: str, fn):
+    """Run the model with ``models.layers.<name>`` (a kernel's wrapper, or
+    the MoE router) replaced by ``fn``."""
+    from repro_torch.models import layers
+    return swapped(layers, name, fn)
+
+
+def dropless(cfg):
+    """``cfg`` at a capacity that drops nothing: cf = E / K makes
+    ``moe_capacity`` n, every token of a group once at every expert."""
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+def layer_kinds(cfg) -> set:
+    return {cfg.layer_kind(i) for i in range(cfg.pattern_period)}
+
+
+def recorded_routing(records: list):
+    """Run the model with ``models.layers.moe_route`` wrapped so that each
+    call appends its top-K expert ids (G, n, K), on the device, to
+    ``records``: one a MoE layer, in layer order."""
+    from repro_torch.models import layers
+    route = layers.moe_route
+
+    def record(cfg, p, xf):
+        weights, idx = route(cfg, p, xf)
+        records.append(idx)
+        return weights, idx
+    return model_calls("moe_route", record)
+
+
+def capacity_drops(cfg, records: list) -> list:
+    """The entries each recorded MoE call dropped: per group and expert,
+    those beyond ``moe_capacity`` (the expert keeps its first ``cap`` in
+    sorted order)."""
+    from repro_torch.models.layers import moe_capacity
+    E, out = cfg.num_experts, []
+    for idx in records:
+        G, n, _ = idx.shape
+        groups = torch.arange(G, device=idx.device)[:, None, None]
+        counts = torch.bincount((idx + E * groups).reshape(-1),
+                                minlength=G * E)
+        out.append(int((counts - moe_capacity(cfg, n)).clamp_min(0).sum()))
+    return out
+
+
+def reversed_gates(route):
+    """A wrong MoE combine: ``route``'s routing with each token's K gate
+    weights reversed across its experts (the largest on the K-th)."""
+    def wrong(cfg, p, xf):
+        weights, idx = route(cfg, p, xf)
+        return weights.flip(-1), idx
+    return wrong
 
 
 def ssd_decay_after_input(x, b, c, a, **kw):
@@ -2103,24 +2217,33 @@ def attn_wrong_group(q, k, v, lengths):
 
 def bf16_readings(cfg, params, prompts, tokens, logits) -> dict:
     """The bf16 decode-vs-forward reading (rel L2) with the kernel's plain
-    version or a wrong function in the kernel's place.  The SSD kernel
-    serves ``forward``, so its stand-ins replace it there; decode attention
-    serves the decode steps, so its stand-in runs ``generate`` again."""
+    version or a wrong function in its place.  The SSD kernel and the MoE
+    router serve ``forward``, so their stand-ins replace them there
+    (against the sound decode logits); decode attention serves the decode
+    steps, so its stand-in runs ``generate`` again."""
     from repro_torch.kernels.ssd import ssd_chunked_ref
+    from repro_torch.models import layers
     from repro_torch.serve import generate
+    kinds = layer_kinds(cfg)
     out = {}
-    if cfg.family == "ssm":
+    in_forward = []
+    if "ssm" in kinds:
+        in_forward += [("ssd_chunked", "plain_ssd", ssd_chunked_ref),
+                       ("ssd_chunked", "wrong_decay_after_input",
+                        ssd_decay_after_input),
+                       ("ssd_chunked", "wrong_no_diagonal", ssd_no_diagonal)]
         ref = forward_at(cfg, params, prompts, tokens)
-        for name, fn in (("plain_ssd", ssd_chunked_ref),
-                         ("wrong_decay_after_input", ssd_decay_after_input),
-                         ("wrong_no_diagonal", ssd_no_diagonal)):
-            with model_calls("ssd_chunked", fn):
-                other = forward_at(cfg, params, prompts, tokens)
-            out[name] = rel(logits, other)
-            if name == "plain_ssd":     # the same function, two summations
-                out["forward_kernel_vs_plain_ssd"] = rel(ref, other)
-            del other
-    else:
+    if cfg.num_experts:
+        in_forward.append(("moe_route", "wrong_moe_combine",
+                           reversed_gates(layers.moe_route)))
+    for attr, name, fn in in_forward:
+        with model_calls(attr, fn):
+            other = forward_at(cfg, params, prompts, tokens)
+        out[name] = rel(logits, other)
+        if name == "plain_ssd":         # the same function, two summations
+            out["forward_kernel_vs_plain_ssd"] = rel(ref, other)
+        del other
+    if "attn" in kinds:
         # leaving out one of ~2,100 keys moves near-uniform random-init
         # attention too little for this check ("blind_"); the float32
         # replay sees it
@@ -2134,20 +2257,32 @@ def bf16_readings(cfg, params, prompts, tokens, logits) -> dict:
     return out
 
 
-def serve_model(arch: str, lines: list) -> dict:
-    """Serve ``arch`` at its published config; returns its launch counts
-    and times."""
+def serve_model(arch: str, lines: list, num_layers: int | None = None,
+                routing: dict | None = None) -> dict:
+    """Serve ``arch`` at its published config (at ``num_layers`` of depth
+    where given: a cut); returns its launch counts and times.  For a MoE
+    arch, ``routing`` (where given) receives the prefill's top-K expert
+    ids of the MoE layers in ``PLACED_LAYERS``, (tokens, K) numpy each."""
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models import (active_param_count, decode_step,
+                                    init_cache, init_params, param_count)
+    from repro_torch.models.layers import moe_capacity
     from repro_torch.serve import generate
 
     cfg = get_config(arch)
+    cut = None
+    if num_layers is not None and num_layers != cfg.num_layers:
+        cut = {"num_layers": [cfg.num_layers, num_layers],
+               "param_count_published": param_count(cfg)}
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == param_count(cfg), f"{arch}: {n_params} parameters, "
+          f"param_count {param_count(cfg)}")
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device="cuda")
@@ -2162,12 +2297,16 @@ def serve_model(arch: str, lines: list) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     # the prefill alone, as generate runs it, for the prefill/decode split
+    # (and the routing of its MoE layers)
     cache = init_cache(cfg, BATCH, PROMPT + NEW + 1, device="cuda")
     zeros = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
-    t0 = time.perf_counter()
-    decode_step(cfg, params, cache, prompts, zeros)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    prefill_routes: list = []
+    with (recorded_routing(prefill_routes) if cfg.num_experts
+          else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        decode_step(cfg, params, cache, prompts, zeros)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
     decode_s = total_s - prefill_s
     prof = profile_decode(cfg, params, cache,
                           torch.full((BATCH,), PROMPT, dtype=torch.int32,
@@ -2179,10 +2318,26 @@ def serve_model(arch: str, lines: list) -> dict:
         f"{arch}: tokens out of shape or range")
     check(bool(torch.isfinite(logits.float()).all()),
           f"{arch}: decode logits not finite")
-    # decode steps against forward over prompt + output, same positions
+    # decode steps against forward over prompt + output, same positions.
+    # Where a MoE layer's capacity drops entries, a token's output depends
+    # on the batch it is routed with (the prefill's 16,384 tokens against
+    # forward's 4,224), so the two paths compute one function only at a
+    # capacity that drops nothing: the holds run there, on the same
+    # weights and prompts, and the published capacity is read beside them
+    p_chk = prompts[:CHECK_ROWS]
+    ccfg = dropless(cfg)
+    forward_routes: list = []
+    published = None
+    if cfg.num_experts:
+        with recorded_routing(forward_routes):
+            published = logits_check(cfg, params, p_chk, tokens[:CHECK_ROWS],
+                                     logits[:CHECK_ROWS])
+        tok_chk, lg_chk = generate(ccfg, params, p_chk, NEW,
+                                   return_logits=True)
+    else:
+        tok_chk, lg_chk = tokens[:CHECK_ROWS], logits[:CHECK_ROWS]
     ssd_before = ssd.launches
-    bf16_check = logits_check(cfg, params, prompts[:CHECK_ROWS],
-                              tokens[:CHECK_ROWS], logits[:CHECK_ROWS])
+    bf16_check = logits_check(ccfg, params, p_chk, tok_chk, lg_chk)
     torch.cuda.synchronize()
     forward_ssd = ssd.launches - ssd_before
     limit = BF16_LOGITS_REL_L2[arch]
@@ -2190,8 +2345,7 @@ def serve_model(arch: str, lines: list) -> dict:
           f"{arch}: bf16 decode vs forward logits rel L2 "
           f"{bf16_check['rel_l2']} > {limit}")
     # the limit passes the same function and fails wrong ones
-    readings = bf16_readings(cfg, params, prompts[:CHECK_ROWS],
-                             tokens[:CHECK_ROWS], logits[:CHECK_ROWS])
+    readings = bf16_readings(ccfg, params, p_chk, tok_chk, lg_chk)
     for name, value in readings.items():
         if name == "plain_ssd":
             check(value <= limit, f"{arch}: bf16 reading with the plain "
@@ -2201,11 +2355,14 @@ def serve_model(arch: str, lines: list) -> dict:
                   f"({name}) {value} <= {limit}")
     bf16_check["limit"] = limit
     bf16_check["readings"] = readings
-    del params, logits
+    if published is not None:
+        bf16_check["published_capacity"] = published
+    del params, logits, lg_chk
     torch.cuda.empty_cache()
     # the same in float32: the kernels' float32 instances on the decode
     # and forward paths must compute one function
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = dataclasses.replace(ccfg, dtype="float32")
     params = init_params(cfg32, seed=0, device="cuda")
     p32 = prompts[:CHECK_ROWS]
     toks32, logits32 = generate(cfg32, params, p32, REPLAY_NEW,
@@ -2214,31 +2371,134 @@ def serve_model(arch: str, lines: list) -> dict:
     check(f32_check["rel_l2"] <= F32_LOGITS_REL_L2,
           f"{arch}: float32 decode vs forward logits rel L2 "
           f"{f32_check['rel_l2']}")
-    if cfg.family == "dense":     # the fault the bf16 check cannot see
-        with model_calls("decode_attention", attn_missing_newest):
-            toks_w, logits_w = generate(cfg32, params, p32, REPLAY_NEW,
-                                        return_logits=True)
-        wrong = logits_check(cfg32, params, p32, toks_w, logits_w)["rel_l2"]
-        f32_check["wrong_missing_newest"] = wrong
-        check(wrong > F32_LOGITS_REL_L2, f"{arch}: float32 reading of a "
-              f"wrong function (missing newest key) {wrong}")
+    if "attn" in layer_kinds(cfg):     # the faults the bf16 check can miss
+        for name, fn in (("wrong_missing_newest", attn_missing_newest),
+                         ("wrong_kv_group", attn_wrong_group)):
+            with model_calls("decode_attention", fn):
+                toks_w, logits_w = generate(cfg32, params, p32, REPLAY_NEW,
+                                            return_logits=True)
+            wrong = logits_check(cfg32, params, p32, toks_w,
+                                 logits_w)["rel_l2"]
+            f32_check[name] = wrong
+            check(wrong > F32_LOGITS_REL_L2, f"{arch}: float32 reading of "
+                  f"a wrong function ({name}) {wrong}")
+    peak32 = torch.cuda.max_memory_allocated()
     del params
     torch.cuda.empty_cache()
     out = {"arch": arch, "params": n_params, "dtype": cfg.dtype,
-           "layers": cfg.num_layers, "batch": BATCH, "prompt": PROMPT,
-           "new_tokens": NEW, "init_s": init_s, "generate_s": total_s,
+           "layers": cfg.num_layers, "cut": cut, "batch": BATCH,
+           "prompt": PROMPT, "new_tokens": NEW, "init_s": init_s,
+           "generate_s": total_s,
            "prefill_s": prefill_s, "decode_s": decode_s,
            "decode_tokens_per_s": BATCH * NEW / decode_s,
            "decode_step_ms": decode_s / NEW * 1e3,
            "max_memory_allocated_gb": peak / 1e9,
+           "max_memory_allocated_gb_f32_replay": peak32 / 1e9,
            "launches": launches, "forward_check_ssd_launches": forward_ssd,
            "logits_check_bf16": bf16_check, "logits_check_f32": f32_check,
            "decode_profile": prof}
+    if cfg.num_experts:
+        n_pre, n_fwd = BATCH * PROMPT, CHECK_ROWS * (PROMPT + NEW)
+        out["param_count"] = param_count(cfg)
+        out["active_param_count"] = active_param_count(cfg)
+        out["moe_layers"] = len(prefill_routes)
+        out["capacity_dropped"] = {
+            "prefill": {"tokens": n_pre, "cap": moe_capacity(cfg, n_pre),
+                        "by_layer": capacity_drops(cfg, prefill_routes)},
+            "forward": {"tokens": n_fwd, "cap": moe_capacity(cfg, n_fwd),
+                        "by_layer": capacity_drops(cfg, forward_routes)}}
+        check(all(moe_capacity(ccfg, n) >= n for n in (
+            CHECK_ROWS, CHECK_ROWS * PROMPT, CHECK_ROWS * (PROMPT + NEW))),
+            f"{arch}: the holds' capacity drops entries")
+        out["hold_capacity_factor"] = ccfg.capacity_factor
+        check(len(prefill_routes) == len(forward_routes) == sum(
+            cfg.layer_is_moe(i) for i in range(cfg.num_layers)),
+            f"{arch}: MoE calls {len(prefill_routes)} in the prefill, "
+            f"{len(forward_routes)} in forward")
+        if routing is not None:
+            for layer in PLACED_LAYERS:
+                routing[layer] = prefill_routes[layer].reshape(
+                    -1, cfg.experts_per_token).cpu().numpy()
+    del prefill_routes, forward_routes
     lines.append(out)
     log(f"{arch}: prefill {prefill_s:.2f}s, decode "
         f"{out['decode_tokens_per_s']:.0f} tokens/s, peak "
-        f"{peak / 1e9:.1f} GB, launches {launches}, rel L2 bf16 "
-        f"{bf16_check['rel_l2']:.3g} f32 {f32_check['rel_l2']:.3g}")
+        f"{peak / 1e9:.1f} GB (f32 replay {peak32 / 1e9:.1f}), launches "
+        f"{launches}, rel L2 bf16 {bf16_check['rel_l2']:.3g} f32 "
+        f"{f32_check['rel_l2']:.3g}, readings {readings}")
+    return out
+
+
+def placement_phase(routing: dict, num_experts: int, lines: list) -> dict:
+    """Phase 7d: WindGP expert placement on the routing that granite's
+    prefill recorded (layer -> (tokens, K) expert ids), against
+    round-robin.  Returns the line it appends."""
+    from repro_torch.sharding import windgp_placement as wp
+    p = len(POD_MEMORY)
+    out = {"pods": {"compute": POD_COMPUTE, "memory_experts": POD_MEMORY,
+                    "link": POD_LINK}, "layers": {}}
+    for layer, r in routing.items():
+        t0 = time.perf_counter()
+        edges, weights, loads = wp.coactivation_graph(r)
+        graph_s = time.perf_counter() - t0
+        spent = {"coactivation_graph": 0.0, "windgp": 0.0}
+
+        def timed(name):
+            fn = getattr(wp, name)
+
+            def run(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    spent[name] += time.perf_counter() - t
+            return run
+        with swapped(wp, "coactivation_graph", timed("coactivation_graph")), \
+                swapped(wp, "windgp", timed("windgp")):
+            t0 = time.perf_counter()
+            place = wp.place_experts(num_experts, r, POD_COMPUTE, POD_MEMORY,
+                                     POD_LINK)
+            total_s = time.perf_counter() - t0
+        again = wp.place_experts(num_experts, r, POD_COMPUTE, POD_MEMORY,
+                                 POD_LINK)
+        held = np.bincount(place, minlength=p)
+        check(place.shape == (num_experts,) and bool(
+            ((place >= 0) & (place < p)).all()),
+            f"phase 7d layer {layer}: an expert is not placed: {place}")
+        check(bool((held <= np.array(POD_MEMORY) + 1).all()),
+              f"phase 7d layer {layer}: pods hold {held.tolist()} experts, "
+              f"memory {POD_MEMORY} (+1)")
+        check(np.array_equal(place, again),
+              f"phase 7d layer {layer}: a second call placed otherwise")
+        rr = np.arange(num_experts) % p
+        t0 = time.perf_counter()
+        cost = wp.placement_cost(place, r, POD_COMPUTE, POD_LINK)
+        cost_s = time.perf_counter() - t0
+        cost_rr = wp.placement_cost(rr, r, POD_COMPUTE, POD_LINK)
+        out["layers"][layer] = {
+            "tokens": int(r.shape[0]), "k": int(r.shape[1]),
+            "edges": int(len(edges)), "edge_weight_sum": float(weights.sum()),
+            "edge_weight_min": float(weights.min()),
+            "edge_weight_max": float(weights.max()),
+            "expert_load_min": int(loads.min()),
+            "expert_load_max": int(loads.max()),
+            "pod_experts": held.tolist(), "pod_experts_round_robin":
+                np.bincount(rr, minlength=p).tolist(),
+            "makespan_windgp": cost, "makespan_round_robin": cost_rr,
+            "windgp_beats_round_robin": bool(cost < cost_rr),
+            "coactivation_graph_s": graph_s,
+            "place_experts_s": total_s,
+            "place_experts_coactivation_graph_s":
+                spent["coactivation_graph"],
+            "place_experts_windgp_s": spent["windgp"],
+            "place_experts_rest_s": total_s - spent["coactivation_graph"]
+            - spent["windgp"],
+            "placement_cost_s": cost_s}
+        log(f"phase 7d: layer {layer}: {len(edges)} co-activation edges, "
+            f"makespan windgp {cost} round-robin {cost_rr}, pods "
+            f"{held.tolist()}, place_experts {total_s:.2f}s (windgp "
+            f"{spent['windgp']:.2f}s)")
+    lines.append({"expert_placement": out})
     return out
 
 
@@ -2449,6 +2709,22 @@ def main() -> int:
           "mamba2-780m forward did not launch ssd 48 times")
     torch.cuda.empty_cache()
 
+    # -- phases 7b-7d: MoE and hybrid serving, expert placement -----------
+    routing: dict = {}
+    granite = serve_model("granite-moe-3b-a800m", lines, routing=routing)
+    check(granite["launches"] == {"decode_attn": 32 * NEW, "ssd": 0},
+          f"granite-moe-3b-a800m launches {granite['launches']} != 32 x "
+          f"{NEW} decode_attn")
+    torch.cuda.empty_cache()
+    jamba = serve_model("jamba-v0.1-52b", lines, num_layers=JAMBA_LAYERS)
+    check(jamba["launches"] == {"decode_attn": NEW, "ssd": 7},
+          f"jamba-v0.1-52b launches {jamba['launches']} != {NEW} "
+          f"decode_attn, 7 ssd")
+    check(jamba["forward_check_ssd_launches"] == 7,
+          "jamba-v0.1-52b forward did not launch ssd 7 times")
+    torch.cuda.empty_cache()
+    placement_phase(routing, 40, lines)
+
     # -- phase 8 ----------------------------------------------------------
     serve_lengths = torch.randint(PROMPT + 1, PROMPT + NEW + 1, (BATCH,),
                                   generator=gen, device="cuda",
@@ -2474,6 +2750,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/kernel.py:59",
         "launches": qwen["launches"]["decode_attn"],
+        "launches_by_arch": {r["arch"]: r["launches"]["decode_attn"]
+                             for r in (qwen, granite, jamba)},
         "max_abs_err": attn_t["max_abs_err"], "ms": attn_t["ms"],
         "plain_ms": attn_t["plain_ms"], "bound_ms": attn_t["bound_ms"],
         "bound_by": attn_t["bound_by"], "library_ms": attn_t["library_ms"],
@@ -2490,6 +2768,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:66",
         "launches": mamba["launches"]["ssd"],
+        "launches_by_arch": {r["arch"]: r["launches"]["ssd"]
+                             for r in (mamba, jamba)},
+        "forward_launches_by_arch": {r["arch"]:
+                                     r["forward_check_ssd_launches"]
+                                     for r in (mamba, jamba)},
         "max_abs_err": ssd_t["max_abs_err"], "ms": ssd_t["ms"],
         "plain_ms": ssd_t["plain_ms"], "bound_ms": ssd_t["bound_ms"],
         "bound_by": ssd_t["bound_by"], "library_ms": None,

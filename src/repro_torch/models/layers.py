@@ -8,7 +8,9 @@ with a cache calls ``kernels.decode_attn.decode_attention`` (the twin of
 ``flash_attention(..., causal=False, kv_lengths=...)`` at S == 1), and
 ``ssm_mixer`` calls ``kernels.ssd.ssd_chunked`` where the reference calls
 ``ssd_jax``.  Prefill and training attention stay the plain blockwise
-``flash_attention``.  MLA and MoE are not ported yet (``ROADMAP.md`` §A).
+``flash_attention``, and the MoE FFN's expert products plain batched
+matrix products (the reference leaves them to XLA).  MLA is not ported yet
+(``ROADMAP.md`` §A).
 
 The reference's cast points are kept: ``rms_norm`` computes in float32 and
 casts back, ``xdt`` and ``d_skip`` are cast to x's dtype, the SSM state is
@@ -36,6 +38,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _normal(gen, shape, dtype, scale):
+    if gen.device.type == "meta":       # param_count: shapes only
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=dtype) * scale
 
@@ -229,6 +233,128 @@ def mlp(cfg: ModelConfig, p, x):
     else:
         h = gelu(torch.einsum("bsd,df->bsf", x, p["w_up"]))
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator):
+    d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.num_experts, _dtype(cfg)
+    s = 1.0 / math.sqrt(d)
+    return {
+        "router": _normal(gen, (d, E), torch.float32, s),
+        "w_gate": _normal(gen, (E, d, f), dt, s),
+        "w_up": _normal(gen, (E, d, f), dt, s),
+        "w_down": _normal(gen, (E, f, d), dt,
+                          1.0 / math.sqrt(f * cfg.num_layers)),
+    }
+
+
+def moe_groups(cfg: ModelConfig, N: int) -> int:
+    """Token groups of ``N`` tokens, each sorted and capped on its own:
+    ``cfg.moe_groups`` where it divides N into groups of at least K."""
+    G, K = cfg.moe_groups, cfg.experts_per_token
+    return G if (G and N % G == 0 and N // G >= K) else 1
+
+
+def moe_capacity(cfg: ModelConfig, n: int) -> int:
+    """Slots an expert of a group of ``n`` tokens: cf-scaled, clamped so
+    small serving batches (decode: one token a sequence) never drop."""
+    K, E = cfg.experts_per_token, cfg.num_experts
+    return max(1, int(cfg.capacity_factor * n * K / E), min(n, 128))
+
+
+def moe_route(cfg: ModelConfig, p, xf):
+    """The router on xf (G, n, d): each token's top-K experts by float32
+    logit, in descending order, and their softmax weights, (G, n, K)."""
+    logits = torch.einsum("gnd,de->gne", xf.float(), p["router"])
+    gates, idx = torch.topk(logits, cfg.experts_per_token, dim=-1,
+                            sorted=True)
+    return torch.softmax(gates, dim=-1), idx
+
+
+def moe_combine(table, slot, weight, order, K: int):
+    """out[t] = Σ table[slot[j]] · weight[j] over the K entries j of token
+    t, in table's dtype, added one at a time in ascending sorted position:
+    the order in which the reference's serial scatter-add
+    ``out.at[gtok].add(...)`` meets them, so the sum rounds as it does.
+
+    table (R, d); slot (G, n·K) rows of ``table`` and weight (G, n·K) in
+    table's dtype, both in sorted order; order (G, n·K) the sort
+    permutation: sorted entry j of group g is entry ``t·K + k`` of the
+    group's tokens.  Returns (G·n, d).  Deterministic: no atomics."""
+    G, nK = order.shape
+    n = nK // K
+    sorted_pos = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(nK, device=order.device).expand(G, nK))
+    # each token's entries, in the order the serial scatter meets them
+    mine = sorted_pos.reshape(G, n, K).sort(dim=-1).values
+    flat = (torch.arange(G, device=order.device)[:, None, None] * nK
+            + mine).reshape(G * n, K)
+    terms = table[slot.reshape(-1)[flat]] \
+        * weight.reshape(-1)[flat][..., None]              # (G·n, K, d)
+    out = torch.zeros((G * n, table.shape[-1]), dtype=table.dtype,
+                      device=table.device)
+    for j in range(K):
+        out = out + terms[:, j]
+    return out
+
+
+def silu_stepwise(x):
+    """x · sigmoid(x) as ``jax.nn.silu`` computes it, ``x · (1 / (1 +
+    exp(-x)))`` with one rounding to x's dtype after each step (``F.silu``
+    rounds once), in one buffer besides x: in bfloat16 the MoE FFN then
+    agrees with the reference's on the CPU."""
+    return torch.neg(x).exp_().add_(1).reciprocal_().mul_(x)
+
+
+def moe_ffn(cfg: ModelConfig, p, x):
+    """Token-choice top-k MoE with sort-based capacity dispatch.
+
+    Fixed shapes throughout (a stable argsort, a gather into the expert
+    buffer, the deterministic ``moe_combine``), and no host sync: the
+    capacity comes from shapes.  With ``cfg.moe_groups = G`` the tokens
+    form G groups, each sorted and capped on its own.  ``cfg.moe_ep`` is a
+    sharding constraint in the reference, a no-op on one device, and is
+    ignored here.
+    """
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    N = B * S
+    G = moe_groups(cfg, N)
+    n = N // G
+    dev = x.device
+    xf = x.reshape(G, n, d)
+    weights, idx = moe_route(cfg, p, xf)                   # (G, n, K)
+    flat_e = idx.reshape(G, n * K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)     # per-group sort
+    se = flat_e.gather(-1, order)
+    stok = order // K                                      # token of entry
+    sw = weights.reshape(G, n * K).gather(-1, order)
+    seg_start = torch.searchsorted(
+        se, torch.arange(E, device=dev).expand(G, E).contiguous(),
+        right=False)
+    pos = torch.arange(n * K, device=dev)[None, :] - seg_start.gather(-1, se)
+    cap = moe_capacity(cfg, n)
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, E * cap)      # overflow -> dump
+    gslot = torch.arange(G, device=dev)[:, None] * (E * cap + 1) + slot
+    gtok = torch.arange(G, device=dev)[:, None] * n + stok
+    # each kept entry fills its slot once; empty slots and the dump row
+    # read a zero row (index N), as the reference's zero buffer holds
+    src = torch.full((G * (E * cap + 1),), N, dtype=torch.long, device=dev)
+    src[gslot.reshape(-1)] = torch.where(keep, gtok, N).reshape(-1)
+    rows = torch.cat([x.reshape(N, d), x.new_zeros((1, d))])
+    h = rows[src].reshape(G, E * cap + 1, d)[:, :-1].reshape(G, E, cap, d)
+    act = silu_stepwise if cfg.mlp_type != "gelu" else gelu
+    hidden = act(torch.einsum("gecd,edf->gecf", h, p["w_gate"])).mul_(
+        torch.einsum("gecd,edf->gecf", h, p["w_up"]))
+    out_e = torch.einsum("gecf,efd->gecd", hidden, p["w_down"])
+    table = torch.cat([out_e.reshape(G, E * cap, d),
+                       x.new_zeros((G, 1, d))], dim=1).reshape(-1, d)
+    out = moe_combine(table, gslot, (sw * keep).to(x.dtype), order, K)
+    return out.reshape(B, S, d)
 
 
 # ---------------------------------------------------------------------------

@@ -15,16 +15,18 @@ API:
   decode_step(cfg, params, cache, tokens, cache_len)
                                           -> (logits, cache)
       S > 1 with an all-zero cache_len acts as prefill.
+  param_count(cfg), active_param_count(cfg) -> int  (from shapes)
 
 The cache keeps the reference's pytree layout, ``{"pos{p}": {leaf: tensor
 stacked on n_super}}``, and ``decode_step`` updates it in place (the
-returned cache is the same object).  Dense GQA and SSM archs are ported;
-MLA, MoE and hybrid patterns raise ``NotImplementedError`` (``ROADMAP.md``
-§A).
+returned cache is the same object).  Dense GQA, SSM, MoE and hybrid
+(jamba: attention at i % 8 == 4, MoE at odd i, period 8) archs are
+ported; MLA raises ``NotImplementedError`` (``ROADMAP.md`` §A).
 """
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 from torch import nn
@@ -39,10 +41,9 @@ def _dt(cfg) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attn_type == "mla" or cfg.num_experts or cfg.family == "hybrid":
+    if cfg.attn_type == "mla":
         raise NotImplementedError(
-            f"{cfg.name}: MLA, MoE and hybrid archs are not ported yet "
-            f"(ROADMAP.md §A)")
+            f"{cfg.name}: MLA is not ported yet (ROADMAP.md §A)")
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -52,11 +53,13 @@ def _params(tensors: dict) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One sub-layer: ``ln1``, ``mixer`` (attention or SSM), and with
-    ``d_ff > 0`` ``ln2`` and ``ffn``, named as in the reference."""
+    ``d_ff > 0`` ``ln2`` and ``ffn`` (an MLP, or experts where
+    ``cfg.layer_is_moe``), named as in the reference."""
 
     def __init__(self, cfg: ModelConfig, pos: int, tensors: dict):
         super().__init__()
         self.kind = cfg.layer_kind(pos)
+        self.moe = cfg.layer_is_moe(pos)
         self.ln1 = nn.Parameter(tensors["ln1"], requires_grad=False)
         self.mixer = _params(tensors["mixer"])
         if cfg.d_ff > 0:
@@ -91,8 +94,22 @@ def _init_sublayer(cfg: ModelConfig, pos: int, gen: torch.Generator):
         p["mixer"] = L.init_ssm(cfg, gen)
     if cfg.d_ff > 0:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
-        p["ffn"] = L.init_mlp(cfg, gen)
+        p["ffn"] = (L.init_moe if cfg.layer_is_moe(pos) else L.init_mlp)(
+            cfg, gen)
     return p
+
+
+def _init_top(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    dt = _dt(cfg)
+    top = {"final_norm": torch.ones((cfg.d_model,), dtype=dt,
+                                    device=gen.device)}
+    if cfg.input_mode == "tokens":
+        top["embed"] = L._normal(gen, (cfg.vocab_size, cfg.d_model), dt,
+                                 0.02)
+    if cfg.input_mode != "tokens" or not cfg.tie_embeddings:
+        top["unembed"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), dt,
+                                   1.0 / math.sqrt(cfg.d_model))
+    return top
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Decoder:
@@ -108,15 +125,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Decoder:
     gen = torch.Generator(device=dev).manual_seed(seed)
     blocks = [_init_sublayer(cfg, i % period, gen)
               for i in range(cfg.num_layers)]
-    dt = _dt(cfg)
-    top = {"final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
-    if cfg.input_mode == "tokens":
-        top["embed"] = L._normal(gen, (cfg.vocab_size, cfg.d_model), dt,
-                                 0.02)
-    if cfg.input_mode != "tokens" or not cfg.tie_embeddings:
-        top["unembed"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), dt,
-                                   1.0 / math.sqrt(cfg.d_model))
-    return Decoder(cfg, blocks, top)
+    return Decoder(cfg, blocks, _init_top(cfg, gen))
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +144,7 @@ def _apply_block(cfg, blk: Block, x, positions, cache, cache_len, mode):
     x = x + y
     if cfg.d_ff > 0:
         h = L.rms_norm(x, blk.ln2, cfg.norm_eps)
-        x = x + L.mlp(cfg, blk.ffn, h)
+        x = x + (L.moe_ffn if blk.moe else L.mlp)(cfg, blk.ffn, h)
     return x, new_cache
 
 
@@ -219,3 +228,35 @@ def decode_step(cfg: ModelConfig, params: Decoder, cache, tokens, cache_len):
     positions = cache_len[:, None] + torch.arange(S, device=x.device)[None, :]
     x = _stack(cfg, params, x, positions, cache, cache_len, mode)
     return _logits_out(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# parameter accounting
+# ---------------------------------------------------------------------------
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of ``init_params(cfg)``, from the shapes that the init
+    functions make on the ``meta`` device: nothing is allocated."""
+    _check_supported(cfg)
+    meta = types.SimpleNamespace(device=torch.device("meta"))
+    period = cfg.pattern_period
+    return sum(_numel(_init_sublayer(cfg, i % period, meta))
+               for i in range(cfg.num_layers)) + _numel(_init_top(cfg, meta))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Per-token active params (MoE: only top-k experts count)."""
+    total = param_count(cfg)
+    if cfg.num_experts == 0:
+        return total
+    # subtract inactive expert weights
+    d, f, E, K = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.experts_per_token
+    per_layer_expert = 3 * d * f
+    n_moe = sum(1 for i in range(cfg.num_layers) if cfg.layer_is_moe(i))
+    return int(total - n_moe * (E - K) * per_layer_expert)

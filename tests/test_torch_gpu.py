@@ -43,6 +43,7 @@ from repro_torch.kernels.decode_attn import kernel as attn_k
 from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
 from repro_torch.kernels.ssd import kernel as ssd_k
 from repro_torch.models import forward, init_params
+from repro_torch.models import layers as TL
 from repro_torch.sampling import (FeatureStore, HaloCache, MachineCSC,
                                   PrefetchPipeline, SamplingService,
                                   fanout_hop, sample_fanout_np)
@@ -468,6 +469,7 @@ def decode_edge_lengths(S, split_len, B):
     (8, 32, 8, 128, 16384),   # long splits (2752 positions)
     (4, 40, 8, 128, 500),     # G = 5: heads padded to 8 on the tensor cores
     (4, 32, 2, 64, 700),      # G = 16: bf16 on the CUDA-core kernel
+    (8, 24, 8, 64, 2113),     # granite: G = 3 padded to 4, dh 64
 ])
 def test_decode_attn_split_edges(cuda, dtype, B, H, KVH, dh, S):
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -523,6 +525,8 @@ def test_occupancy_at_serving_widths(cuda, dtype):
     (2, 200, 8, 2, 64, 128, 128, None),   # G = 2, nh = 8
     (1, 200, 4, 1, 64, 128, 128, 0.0),    # a = 0: no decay
     (1, 200, 4, 1, 64, 128, 128, 5.0),    # a = -5
+    (2, 300, 128, 1, 64, 16, 128, None),  # jamba: nh 128, ds 16 (padded)
+    (1, 1000, 128, 1, 64, 16, 128, 5.0),  # jamba's widths, a = -5
 ])
 def test_ssd_chunk_edges(cuda, dtype, B, T, nh, G, dh, ds, chunk, decay):
     gen = torch.Generator(device=cuda).manual_seed(4)
@@ -546,7 +550,8 @@ def test_ssd_chunk_edges(cuda, dtype, B, T, nh, G, dh, ds, chunk, decay):
     torch.testing.assert_close(h, h_ref, **STATE_TOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m",
+                                  "granite-moe-3b-a800m", "jamba-v0.1-52b"])
 def test_reduced_model_card_matches_cpu(cuda, arch):
     cfg = get_reduced(arch)
     prompts = torch.randint(0, cfg.vocab_size, (2, 40),
@@ -556,12 +561,48 @@ def test_reduced_model_card_matches_cpu(cuda, arch):
     got = forward(cfg, on_gpu, prompts.to(cuda))
     torch.testing.assert_close(got.cpu(), forward(cfg, on_cpu, prompts),
                                rtol=1e-4, atol=1e-4)
-    kern = (decode_attention if cfg.family == "dense" else ssd_chunked)
+    kern = (ssd_chunked if cfg.family in ("ssm", "hybrid")
+            else decode_attention)
     before = kern.launches
     toks = generate(cfg, on_gpu, prompts.to(cuda), 4)
     assert kern.launches > before
     assert torch.equal(toks.cpu(),
                        generate(cfg, on_cpu, prompts, 4, device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,N", [("granite-moe-3b-a800m", 8),
+                                    ("granite-moe-3b-a800m", 600),
+                                    ("jamba-v0.1-52b", 300)])
+def test_moe_ffn_on_card_is_deterministic(cuda, arch, N, dtype):
+    """moe_ffn on the card: the same output twice, bitwise (the combine
+    adds each token's K terms in a fixed order, no atomics), no host sync
+    (the sync debug mode raises on one), and the CPU's within float32
+    summation order (bf16: two bf16 units of each row's largest value)."""
+    cfg = dataclasses.replace(get_reduced(arch), capacity_factor=0.25,
+                              experts_per_token=8 if "granite" in arch
+                              else 2, dtype=str(dtype).split(".")[-1])
+    gen = torch.Generator().manual_seed(5)
+    p = TL.init_moe(cfg, gen)
+    x = torch.randn((1, N, cfg.d_model), generator=gen).to(dtype)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    xc = x.to(cuda)
+    TL.moe_ffn(cfg, pc, xc)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = TL.moe_ffn(cfg, pc, xc)
+        again = TL.moe_ffn(cfg, pc, xc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, again)
+    want = TL.moe_ffn(cfg, p, x).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    else:
+        unit = 2.0 ** (torch.floor(torch.log2(
+            want.abs().amax(-1, keepdim=True).clamp_min(1e-30))) - 7)
+        assert bool(((got.cpu().float() - want).abs() <= 2 * unit).all())
 
 
 def sampling_pair(devices, replace, fanouts=(10, 5)):

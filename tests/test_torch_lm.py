@@ -25,7 +25,7 @@ from repro.models import init_params as jax_init_params
 from repro.models import layers as JL
 from repro.serve import generate as jax_generate
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_ref)
@@ -34,8 +34,6 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 init_params)
 from repro_torch.models import layers as TL
 from repro_torch.serve import generate
-
-ARCHS = ("qwen3-4b", "mamba2-780m")
 
 
 def t(a):
@@ -258,11 +256,12 @@ def test_configs_equal_reference(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("jamba-v0.1-52b")
-    moe = dataclasses.replace(get_reduced("qwen3-4b"), num_experts=4,
-                              experts_per_token=2)
+        get_config("minicpm3-4b")
+    mla = dataclasses.replace(get_reduced("qwen3-4b"), attn_type="mla",
+                              kv_lora_rank=32, qk_nope_dim=16,
+                              qk_rope_dim=16, v_head_dim=32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(moe, 0, "cpu")
+        init_params(mla, 0, "cpu")
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
