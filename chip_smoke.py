@@ -98,15 +98,21 @@ the script exit non-zero after it has printed what it measured):
    ``all_reduce`` ms and the superstep wall;
 5. hold ``decode_attn`` and ``ssd`` against their plain versions in
    float32 and bfloat16, on edge inputs: ``decode_attn`` at the serving
-   batch and at qwen3-4b's and jamba's widths (32 heads over 8 of 128)
-   and granite's (24 over 8 of 64: G = 3, padded to 4 on the tensor
-   cores), so with the main path's split plan, ragged lengths on the
+   batch and at qwen3-4b's and jamba's widths (32 heads over 8 of 128),
+   granite's (24 over 8 of 64: G = 3, padded to 4 on the tensor
+   cores), glm4-9b's (32 over 2 of 128: G = 16, the CUDA-core body in
+   bf16), qwen3-14b's (40 over 8: G = 5), musicgen-medium's (24 over 24
+   of 64: G = 1) and paligemma-3b's (8 over 1 of 256), so with the main
+   path's split plan, ragged lengths on the
    split edges below a Smax that is no multiple of any block, a
    ``lengths == 0`` row, and the newest key left out, which the hold must
    reject; ``ssd`` at mamba2-780m's widths (48 heads, ds 128) and
    jamba's (128 heads, ds 16: half the tensor-core instance's 32 state
    columns padding), with T no multiple of the chunk, strong decay
-   (a = -5), and the final SSD state;
+   (a = -5), and the final SSD state; and its ``autograd.Function`` at
+   both widths (T = 300, final state too): one launch forward, a
+   ``grad_fn`` on each output, the gradients of x, b, c and a bitwise
+   autograd's through the plain version (its backward is that VJP);
 6. serve qwen3-4b at its published config (bf16, 36 layers, random
    weights from a seeded generator on the card) through
    ``serve.generate``: 8 prompts of 2048 random tokens, 64 new tokens,
@@ -151,6 +157,17 @@ the script exit non-zero after it has printed what it measured):
    expert placed, no pod above its memory + 1 experts, the same placement
    on a second call; it prints both makespans (WindGP and round-robin),
    the co-activation graph's size and the seconds of its parts;
+   7e. the remaining archs at their published configs, full depth,
+   served as in 6: glm4-9b, qwen3-14b, minicpm3-4b (MLA: the plain
+   blockwise attention at every S, no kernel), musicgen-medium and
+   paligemma-3b (embedding-input stubs: (8, 2048, d) prompts drawn from
+   the seed, each token fed back as ``jax.nn.one_hot``'s row).
+   ``decode_attn`` launches layers × 64 times (minicpm3-4b never).  Each
+   is held decode-vs-``forward`` in bf16 and in the float32 replay, and
+   read with wrong decode attentions that must exceed the limits: MLA
+   with ``k_rope`` left out of the score; the wrong KV group (MHA: the
+   next head), or with one KV head the wrong sequence's cache; the
+   newest key left out (float32);
 8. time ``decode_attn`` at the serving shape and at S = 32768, and
    ``ssd`` at the serving shape, beside their plain versions, a library
    call where one exists, and their bounds.  These times are device time
@@ -165,7 +182,23 @@ the script exit non-zero after it has printed what it measured):
    every instance's row carries the profiler's time beside, the grid,
    block, registers and shared memory of its profiled launches (trace),
    held against the tile plan the wrapper launched with, and the CTAs an
-   SM (``bsr_spmv_occupancy``).
+   SM (``bsr_spmv_occupancy``);
+9. training, through ``train.make_train_step`` (bf16, remat, AdamW at
+   1e-3) on ``SyntheticLM`` batches of 2048 tokens: mamba2-780m at its
+   published config, 8 sequences, 5 steps, through the ``ssd`` kernel
+   (forward and remat recompute, 2 × 48 launches a step) and its plain
+   VJP backward.  Held: the float32 gradients at full depth through the
+   kernel against through the plain SSD on the first batch, leaf by
+   leaf (``GRAD_F32_REL_L2``), with the ssd gradient dropped as the wrong
+   reading; every parameter's gradient finite and nonzero; a checkpoint
+   at step 2 restored on the card into other weights bitwise, and steps
+   3–5 resumed from it against the straight run (``RESUME_REL``).  Then
+   qwen3-4b at its published config, 1 sequence (its 53 GB of bf16
+   weights and gradients and float32 moments).  For both, the loss on
+   one held-out batch (the stream's next, never trained on), before the
+   first step and after each, must fall by more than the spread of the
+   training batches' losses at the initial weights.  Prints step ms, tokens/s and peak GB, and the ``ssd``
+   kernel's forward ms and its plain backward's ms a step.
 
 It prints JSON lines (sizes, memory, times, checks, the kernel table
 line), the ``nvidia-smi`` name and power limit, and last
@@ -179,6 +212,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -276,10 +310,18 @@ REPLAY_NEW = 8
 # qwen3-4b 0.0137 against 1.32, mamba2-780m 0.274 and 0.276 against 1.29
 # and 1.34, granite-moe-3b-a800m 0.0229 against 0.375 (wrong combine) and
 # 1.29, jamba-v0.1-52b 0.150 and 0.158 against 0.211 (wrong KV group, its
-# one attention layer in 8), 0.563, 1.06 and 1.11 (PERF.md).  The float32
-# replay holds the attention faults sharply.
+# one attention layer in 8), 0.563, 1.06 and 1.11; glm4-9b 0.0195 against
+# 1.07, qwen3-14b 0.0193 against 1.27, minicpm3-4b 0.0210 against 0.106
+# (k_rope left out), musicgen-medium 0.0196 against 0.697, paligemma-3b
+# 0.0248 against 1.41 (wrong sequence) (PERF.md).  The float32 replay
+# holds the attention faults sharply.
 BF16_LOGITS_REL_L2 = {"qwen3-4b": 0.05, "mamba2-780m": 0.5,
-                      "granite-moe-3b-a800m": 0.1, "jamba-v0.1-52b": 0.185}
+                      "granite-moe-3b-a800m": 0.1, "jamba-v0.1-52b": 0.185,
+                      "glm4-9b": 0.05, "qwen3-14b": 0.05, "minicpm3-4b": 0.05,
+                      "musicgen-medium": 0.05, "paligemma-3b": 0.05}
+# phase 7e: the archs served at their published configs, full depth
+NEW_ARCHS = ("glm4-9b", "qwen3-14b", "minicpm3-4b", "musicgen-medium",
+             "paligemma-3b")
 # jamba-v0.1-52b (phase 7c): its full width at one pattern period of depth
 JAMBA_LAYERS = 8
 
@@ -294,6 +336,29 @@ POD_LINK = [1.0, 1.0, 1.5]
 # the multi-device path (phase 4j): one machine a gloo rank, every rank on
 # the one card, the launcher's limit on the ranks' run
 MESH_TIMEOUT_S = 480
+
+# phase 9, training: bf16, remat, AdamW at the train CLI's default rate,
+# on SyntheticLM batches of 2048 tokens (seed 0); mamba2-780m at 8
+# sequences, qwen3-4b at 1 (its weights, gradients and float32 moments
+# are ~53 GB); a checkpoint at step 2
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_LR, CKPT_STEP = 5, 2048, 1e-3, 2
+TRAIN_BATCH = {"mamba2-780m": 8, "qwen3-4b": 1}
+# mamba2-780m's gradients through the ssd kernel against those through
+# the plain SSD, float32, full depth, on the first batch: the largest
+# relative L2 of a parameter's gradient.  The two differ only in the
+# forward's summation order; on an H100 the largest reads 9.6e-5 (a deep
+# layer's dt_bias, a sum over 16,384 tokens that mostly cancels) and the
+# ssd gradient dropped 55 (PERF.md)
+GRAD_F32_REL_L2 = 1e-3
+# the loss must fall: the held-out batch's loss before the first step
+# less its loss after the last above the training batches' spread
+# (largest less smallest of their losses at the initial weights).  On one
+# batch the difference is the weights' alone; an optimizer that does
+# nothing reads 0, bitwise
+# the run resumed from the step-2 checkpoint against the one that went
+# straight through: losses and each parameter within 1e-6 relative (the
+# same kernels on the same inputs; the reading records whether bitwise)
+RESUME_REL = 1e-6
 
 FAILURES: list[str] = []
 
@@ -1986,9 +2051,13 @@ def ssd_inputs(gen, B, T, nh, G, dh, ds, dtype, decay=None):
 
 
 #: (H, KVH, dh) of decode_attn's holds: qwen3-4b's and jamba's widths,
-#: and granite's (G = 3, dh 64); (nh, G, dh, ds) of ssd's: mamba2-780m's
+#: granite's (G = 3, dh 64), glm4-9b's (G = 16: the CUDA-core body in
+#: bf16), qwen3-14b's (G = 5), musicgen-medium's (G = 1) and
+#: paligemma-3b's (dh 256, G = 8); (nh, G, dh, ds) of ssd's: mamba2-780m's
 #: and jamba's (ds 16)
-DECODE_WIDTHS = {"": (32, 8, 128), "_granite": (24, 8, 64)}
+DECODE_WIDTHS = {"": (32, 8, 128), "_granite": (24, 8, 64),
+                 "_glm4": (32, 2, 128), "_qwen3_14b": (40, 8, 128),
+                 "_musicgen": (24, 24, 64), "_paligemma": (8, 1, 256)}
 SSD_WIDTHS = {"": (48, 1, 64, 128), "_jamba": (128, 1, 64, 16)}
 
 
@@ -2039,8 +2108,42 @@ def hold_lm_kernels(gen) -> dict:
                                              tag + " final state")
                 check(bool(torch.isfinite(y.float()).all()),
                       f"{tag} not finite")
+        # the autograd.Function: gradients of x, b, c, a against autograd
+        # through the plain version, bitwise (its backward is that VJP)
+        for arch, (nh, G, dh, ds) in SSD_WIDTHS.items():
+            tag = f"ssd_grad_{name}{arch}"
+            errs[tag] = hold_ssd_gradients(gen, nh, G, dh, ds, dtype, tag)
     torch.cuda.synchronize()
     return errs
+
+
+def hold_ssd_gradients(gen, nh, G, dh, ds, dtype, tag: str) -> float:
+    """The ``ssd`` autograd.Function at (nh, G, dh, ds), T = 300 and the
+    final state asked for: one kernel launch forward, ``grad_fn`` on both
+    outputs, and the gradients of x, b, c and a equal to autograd's
+    through the plain version bitwise.  Returns the largest |d|."""
+    from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref
+    x, b, c, a = ssd_inputs(gen, 2, 300, nh, G, dh, ds, dtype)
+    wy = torch.randn(x.shape, generator=gen, device="cuda")
+    wh = torch.randn((2, nh, ds, dh), generator=gen, device="cuda")
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (x, b, c, a)]
+        y, h = fn(*ins, chunk=128, return_state=True)
+        check(y.grad_fn is not None and h.grad_fn is not None,
+              f"{tag}: an output without grad_fn")
+        ((y.float() * wy).sum() + (h * wh).sum()).backward()
+        return [t.grad for t in ins]
+    before = ssd_chunked.launches
+    got = grads(ssd_chunked)
+    torch.cuda.synchronize()
+    check(ssd_chunked.launches == before + 1,
+          f"{tag}: {ssd_chunked.launches - before} launches, not 1")
+    want = grads(ssd_chunked_ref)
+    for n, g, w in zip("xbca", got, want):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"{tag}: d{n} differs from the plain VJP by {max_err(g, w)}")
+    return max(max_err(g, w) for g, w in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -2048,11 +2151,14 @@ def hold_lm_kernels(gen) -> dict:
 # ---------------------------------------------------------------------------
 
 def forward_at(cfg, params, prompts, tokens) -> torch.Tensor:
-    """``forward`` over prompt + tokens, float32 logits at the positions
-    that produced ``tokens`` (B, n, V)."""
+    """``forward`` over prompt + tokens (fed as ``generate`` feeds them
+    back), float32 logits at the positions that produced ``tokens``
+    (B, n, V)."""
     from repro_torch.models import forward
+    from repro_torch.serve import next_inputs
     P, n = prompts.shape[1], tokens.shape[1]
-    ref = forward(cfg, params, torch.cat([prompts, tokens], dim=1))
+    fed = [next_inputs(cfg, tokens[:, i]) for i in range(n)]
+    ref = forward(cfg, params, torch.cat([prompts, *fed], dim=1))
     return ref[:, P - 1:P - 1 + n].float()
 
 
@@ -2081,7 +2187,9 @@ def profile_decode(cfg, params, cache, lens, steps: int = 3) -> dict:
     and the device's busy share of that window."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step
-    tok = torch.zeros((lens.shape[0], 1), dtype=torch.long, device="cuda")
+    from repro_torch.serve import next_inputs
+    tok = next_inputs(cfg, torch.zeros(lens.shape[0], dtype=torch.long,
+                                       device="cuda"))
     decode_step(cfg, params, cache, tok, lens)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2205,14 +2313,52 @@ def attn_missing_newest(q, k, v, lengths):
 
 def attn_wrong_group(q, k, v, lengths):
     """A wrong decode attention: query head h reads KV head h % KVH instead
-    of h // (H / KVH)."""
+    of h // (H / KVH); with one query head a group (MHA), KV head h + 1."""
     from repro_torch.kernels.decode_attn import decode_attention
     H, KVH = q.shape[1], k.shape[2]
-    perm = torch.tensor([(h % KVH) * (H // KVH) + h // KVH for h in range(H)],
-                        device=q.device)
+    G = H // KVH
+    perm = torch.tensor([(h % KVH) * G + h // KVH if G > 1 else (h + 1) % H
+                         for h in range(H)], device=q.device)
     qp = torch.empty_like(q)
     qp[:, perm] = q
     return decode_attention(qp, k, v, lengths)[:, perm]
+
+
+def attn_wrong_sequence(q, k, v, lengths):
+    """A wrong decode attention: sequence b reads the cache of sequence
+    b + 1 (the one fault a single KV head leaves to a group mapping)."""
+    from repro_torch.kernels.decode_attn import decode_attention
+    return decode_attention(q, k.roll(-1, 0), v.roll(-1, 0),
+                            lengths.roll(-1, 0))
+
+
+def mla_without_rope(cfg):
+    """A wrong MLA decode step: ``k_rope`` left out of the score (the
+    query's rope part zeroed at S == 1, where only the decode steps call
+    ``flash_attention`` with one query position)."""
+    from repro_torch.models import layers
+    plain, dr = layers.flash_attention, cfg.qk_rope_dim
+
+    def wrong(q, k, v, **kw):
+        if q.shape[1] == 1:
+            q = torch.cat([q[..., :-dr], torch.zeros_like(q[..., -dr:])], -1)
+        return plain(q, k, v, **kw)
+    return wrong
+
+
+def decode_faults(cfg, float32: bool) -> list:
+    """(name, ``models.layers`` attribute, stand-in) of the wrong decode
+    attentions a decode-vs-forward hold reads: MLA's missing ``k_rope``;
+    for GQA the wrong KV group (with one KV head, the wrong sequence) and
+    the newest key left out, which near-uniform random-init attention
+    hides from the bf16 reading ("blind_") and the float32 replay sees."""
+    if cfg.attn_type == "mla":
+        return [("wrong_no_k_rope", "flash_attention", mla_without_rope(cfg))]
+    group = (("wrong_kv_group", attn_wrong_group) if cfg.num_kv_heads > 1
+             else ("wrong_sequence", attn_wrong_sequence))
+    newest = ("wrong_missing_newest" if float32 else "blind_missing_newest",
+              attn_missing_newest)
+    return [(n, "decode_attention", fn) for n, fn in (group, newest)]
 
 
 def bf16_readings(cfg, params, prompts, tokens, logits) -> dict:
@@ -2244,12 +2390,8 @@ def bf16_readings(cfg, params, prompts, tokens, logits) -> dict:
             out["forward_kernel_vs_plain_ssd"] = rel(ref, other)
         del other
     if "attn" in kinds:
-        # leaving out one of ~2,100 keys moves near-uniform random-init
-        # attention too little for this check ("blind_"); the float32
-        # replay sees it
-        for name, fn in (("wrong_kv_group", attn_wrong_group),
-                         ("blind_missing_newest", attn_missing_newest)):
-            with model_calls("decode_attention", fn):
+        for name, attr, fn in decode_faults(cfg, float32=False):
+            with model_calls(attr, fn):
                 toks, lg = generate(cfg, params, prompts, tokens.shape[1],
                                     return_logits=True)
             out[name] = logits_check(cfg, params, prompts, toks,
@@ -2284,8 +2426,12 @@ def serve_model(arch: str, lines: list, num_layers: int | None = None,
     check(n_params == param_count(cfg), f"{arch}: {n_params} parameters, "
           f"param_count {param_count(cfg)}")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
-                            generator=gen, device="cuda")
+    if cfg.input_mode == "tokens":
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                                generator=gen, device="cuda")
+    else:   # an embedding-input stub: frame or patch embeddings
+        prompts = torch.randn((BATCH, PROMPT, cfg.d_model), generator=gen,
+                              device="cuda")
     torch.cuda.synchronize()
 
     _, attn, ssd = reset_launches()
@@ -2372,9 +2518,8 @@ def serve_model(arch: str, lines: list, num_layers: int | None = None,
           f"{arch}: float32 decode vs forward logits rel L2 "
           f"{f32_check['rel_l2']}")
     if "attn" in layer_kinds(cfg):     # the faults the bf16 check can miss
-        for name, fn in (("wrong_missing_newest", attn_missing_newest),
-                         ("wrong_kv_group", attn_wrong_group)):
-            with model_calls("decode_attention", fn):
+        for name, attr, fn in decode_faults(cfg32, float32=True):
+            with model_calls(attr, fn):
                 toks_w, logits_w = generate(cfg32, params, p32, REPLAY_NEW,
                                             return_logits=True)
             wrong = logits_check(cfg32, params, p32, toks_w,
@@ -2500,6 +2645,237 @@ def placement_phase(routing: dict, num_experts: int, lines: list) -> dict:
             f"{spent['windgp']:.2f}s)")
     lines.append({"expert_placement": out})
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+def ssd_no_grad(x, b, c, a, **kw):
+    """A wrong SSD for training: the kernel on detached inputs, so nothing
+    before it in a layer (in-projection, conv, dt) gets a gradient through
+    it, as the wrapper behaved before its autograd.Function."""
+    from repro_torch.kernels.ssd import ssd_chunked
+    return ssd_chunked(x.detach(), b.detach(), c.detach(), a.detach(), **kw)
+
+
+def synthetic_batches(cfg, batch: int, steps: int) -> list:
+    """``steps`` SyntheticLM batches (seed 0) of ``batch`` × TRAIN_SEQ
+    tokens, on the card."""
+    from repro_torch.data.lm_data import LMDataState, SyntheticLM
+    data, state = SyntheticLM(cfg.vocab_size, seed=0), LMDataState(0, 0)
+    out = []
+    for _ in range(steps):
+        b, state = data.batch(state, batch, TRAIN_SEQ)
+        out.append({k: torch.from_numpy(v).to("cuda") for k, v in b.items()})
+    return out
+
+
+def gradient_hold(cfg, batch) -> dict:
+    """float32 gradients of ``cfg`` (full depth) on ``batch``, remat on:
+    through the ssd kernel and its autograd.Function against through the
+    plain SSD; every parameter's finite and nonzero; and a wrong reading,
+    the ssd gradient dropped (``ssd_no_grad``), which must exceed the
+    limit."""
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_and_grads
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device="cuda").requires_grad_()
+    with model_calls("ssd_chunked", ssd_chunked_ref):
+        plain_loss, plain = loss_and_grads(cfg32, params, batch, remat=True)
+
+    def reading(grads) -> tuple[float, str]:
+        return max((rel(g, plain[n].float()), n) for n, g in grads.items())
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(cfg32, params, batch, remat=True)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    bad = [n for n, g in grads.items()
+           if not (bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0))]
+    check(not bad, f"{cfg.name}: parameters without a finite, nonzero "
+          f"gradient: {bad}")
+    sound, sound_leaf = reading(grads)
+    del grads
+    with model_calls("ssd_chunked", ssd_no_grad):
+        _, wrong = loss_and_grads(cfg32, params, batch, remat=True)
+    dropped, dropped_leaf = reading(wrong)
+    del wrong, plain, params
+    torch.cuda.empty_cache()
+    check(sound <= GRAD_F32_REL_L2, f"{cfg.name}: float32 gradients through "
+          f"the ssd kernel {sound} ({sound_leaf}) from the plain SSD's")
+    check(dropped > GRAD_F32_REL_L2, f"{cfg.name}: the hold passes the ssd "
+          f"gradient dropped ({dropped})")
+    return {"layers": cfg.num_layers, "limit": GRAD_F32_REL_L2,
+            "loss_kernel": float(loss), "loss_plain": float(plain_loss),
+            "rel_l2_max": sound, "rel_l2_max_leaf": sound_leaf,
+            "wrong_ssd_grad_dropped": dropped,
+            "wrong_ssd_grad_dropped_leaf": dropped_leaf,
+            "f32_step_s": step_s}
+
+
+def batch_loss(cfg, params, batch, counters=()) -> float:
+    """The training loss of ``params`` on ``batch`` (no gradient), its
+    kernel launches left out of ``counters``' counts."""
+    from repro_torch.train import make_loss_fn
+    counts = [k.launches for k in counters]
+    with torch.no_grad():
+        loss = float(make_loss_fn(cfg, remat=False)(
+            params, batch["inputs"], batch["labels"]))
+    for k, n in zip(counters, counts):
+        k.launches = n
+    return loss
+
+
+def states_equal(a, b) -> bool:
+    """The same parameters, moments and step, bitwise."""
+    pa, pb = dict(a[0].named_parameters()), dict(b[0].named_parameters())
+    return int(a[1]["step"]) == int(b[1]["step"]) and all(
+        torch.equal(pa[n], pb[n]) and torch.equal(a[1]["m"][n], b[1]["m"][n])
+        and torch.equal(a[1]["v"][n], b[1]["v"][n]) for n in pa)
+
+
+def train_model(arch: str, lines: list, holds: bool = False) -> dict:
+    """Train ``arch`` at its published config for TRAIN_STEPS steps of
+    ``make_train_step`` (bf16, remat), the launches counted over those
+    steps, and the held-out loss before the first step and after each
+    against the training batches' spread.  With ``holds``: the float32
+    gradient hold first, and a
+    checkpoint at CKPT_STEP, restored on the card into other weights
+    (bitwise the saved state) and resumed to the end against the run that
+    went straight through."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train import adamw_init, make_train_step
+    cfg = get_config(arch)
+    B = TRAIN_BATCH[arch]
+    batches = synthetic_batches(cfg, B, TRAIN_STEPS + 1)
+    held = batches.pop()
+    out = {"arch": arch, "batch": B, "seq": TRAIN_SEQ, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "remat": True, "lr": TRAIN_LR,
+           "steps": TRAIN_STEPS}
+    if holds:
+        out["grad_hold_f32"] = gradient_hold(cfg, batches[0])
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device="cuda").requires_grad_()
+    opt = adamw_init(params)
+    out["params"] = sum(p.numel() for p in params.parameters())
+    at_init = [batch_loss(cfg, params, b) for b in batches]
+    held_losses = [batch_loss(cfg, params, held)]
+    step = make_train_step(cfg, lr=TRAIN_LR, remat=True)
+    bsr, attn, ssd = reset_launches()
+    losses, gnorms, step_ms, twin = [], [], [], None
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        held_losses.append(batch_loss(cfg, params, held, (bsr, attn, ssd)))
+        if holds and i + 1 == CKPT_STEP:
+            counts = (bsr.launches, attn.launches, ssd.launches)
+            twin, out["checkpoint"] = checkpoint_hold(cfg, params, opt)
+            bsr.launches, attn.launches, ssd.launches = counts
+    out["launches"] = {"bsr_spmv": bsr.launches,
+                       "decode_attn": attn.launches, "ssd": ssd.launches}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out.update(losses=losses, grad_norms=gnorms, step_ms=step_ms,
+               step_ms_median=statistics.median(step_ms[1:]),
+               tokens_per_s=B * TRAIN_SEQ / statistics.median(step_ms[1:])
+               * 1e3)
+    spread = max(at_init) - min(at_init)
+    drop = held_losses[0] - held_losses[-1]
+    out.update(batch_losses_at_init=at_init, batch_spread_at_init=spread,
+               held_out_losses=held_losses, held_out_drop=drop,
+               ln_vocab=math.log(cfg.vocab_size))
+    check(all(np.isfinite(losses + held_losses)),
+          f"{arch}: training loss not finite")
+    check(drop > spread, f"{arch}: the held-out loss fell {drop} over "
+          f"{TRAIN_STEPS} steps, not above the batches' spread {spread}: "
+          f"{held_losses}")
+    if holds:
+        tp, to = twin
+        resumed = []
+        for b in batches[CKPT_STEP:]:
+            tp, to, m = step(tp, to, b)
+            resumed.append(float(m["loss"]))
+        loss_d = max(abs(x - y) / abs(y)
+                     for x, y in zip(resumed, losses[CKPT_STEP:]))
+        pa, pb = dict(params.named_parameters()), dict(tp.named_parameters())
+        param_d = max(rel(pb[n].detach(), pa[n].detach().float())
+                      for n in pa)
+        out["checkpoint"].update(
+            resumed_losses=resumed, loss_rel_max=loss_d,
+            param_rel_l2_max=param_d,
+            bitwise=states_equal((params, opt), (tp, to)))
+        check(loss_d <= RESUME_REL and param_d <= RESUME_REL,
+              f"{arch}: resumed run from the straight one: losses {loss_d},"
+              f" parameters {param_d}")
+        del tp, to
+    del params, opt, twin
+    torch.cuda.empty_cache()
+    lines.append({"training": out})
+    log(f"phase 9: {arch} losses {[round(x, 4) for x in losses]}, held "
+        f"out {[round(x, 4) for x in held_losses]} (spread "
+        f"{spread:.4f}), step "
+        f"{out['step_ms_median']:.1f} ms, {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {out['peak_gb']:.1f} GB, launches {out['launches']}")
+    return out
+
+
+def checkpoint_hold(cfg, params, opt):
+    """Save (params, opt) under ``build/``, restore it on the card into
+    weights drawn from another seed, and check the restored state is
+    bitwise the saved one.  Returns ((twin params, twin opt), reading)."""
+    import shutil
+    from repro_torch.models import init_params
+    from repro_torch.train import CheckpointManager, adamw_init
+    directory = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    mgr = CheckpointManager(str(directory), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(CKPT_STEP, {"params": params, "opt": opt},
+             extra={"data_seed": 0, "data_cursor": CKPT_STEP})
+    save_s = time.perf_counter() - t0
+    nbytes = (directory / f"step_{CKPT_STEP:010d}" / "arrays.npz").stat().st_size
+    twin = init_params(cfg, seed=1, device="cuda").requires_grad_()
+    t0 = time.perf_counter()
+    restored, at, extra = mgr.restore({"params": twin,
+                                       "opt": adamw_init(twin)},
+                                      device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(directory, ignore_errors=True)
+    state = (restored["params"], restored["opt"])
+    same = states_equal((params, opt), state)
+    check(same and at == CKPT_STEP and extra["data_cursor"] == CKPT_STEP,
+          f"{cfg.name}: the restored checkpoint is not the saved state")
+    return state, {"step": at, "gb": nbytes / 1e9, "save_s": save_s,
+                   "restore_s": restore_s, "restored_bitwise": same}
+
+
+def time_ssd_training(gen, layers: int, forward_launches: int) -> dict:
+    """The ssd autograd.Function at mamba2-780m's training shape (8 × 2048,
+    48 heads of 64, ds 128, bf16): the kernel's forward ms a launch
+    (profiler) and the plain backward's ms a call (CUDA events, median of
+    3; it recomputes the plain forward), and both a training step."""
+    from repro_torch.kernels.ssd import ssd_chunked
+    B, nh, G, dh, ds = TRAIN_BATCH["mamba2-780m"], 48, 1, 64, 128
+    ins = [t.requires_grad_() for t in ssd_inputs(
+        gen, B, TRAIN_SEQ, nh, G, dh, ds, torch.bfloat16)]
+    fwd = timing(lambda: ssd_chunked(*ins, chunk=128), 10, ssd_chunked,
+                 "ssd_scan")
+    y = ssd_chunked(*ins, chunk=128)
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    bwd_ms = median_ms(lambda: torch.autograd.grad(y, ins, gy,
+                                                   retain_graph=True), 3)
+    per_step = forward_launches / TRAIN_STEPS
+    return {"forward_ms": fwd["ms"], "plain_backward_ms": bwd_ms,
+            "forward_launches_per_step": per_step,
+            "backward_calls_per_step": layers,
+            "forward_ms_per_step": fwd["ms"] * per_step,
+            "plain_backward_ms_per_step": bwd_ms * layers}
 
 
 # ---------------------------------------------------------------------------
@@ -2725,6 +3101,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     placement_phase(routing, 40, lines)
 
+    # -- phase 7e: the remaining archs at their published configs ---------
+    from repro_torch.configs import get_config
+    served = {}
+    for arch in NEW_ARCHS:
+        served[arch] = serve_model(arch, lines)
+        cfg = get_config(arch)
+        want = 0 if cfg.attn_type == "mla" else cfg.num_layers * NEW
+        check(served[arch]["launches"] == {"decode_attn": want, "ssd": 0},
+              f"{arch} launches {served[arch]['launches']} != {want} "
+              f"decode_attn")
+        torch.cuda.empty_cache()
+
     # -- phase 8 ----------------------------------------------------------
     serve_lengths = torch.randint(PROMPT + 1, PROMPT + NEW + 1, (BATCH,),
                                   generator=gen, device="cuda",
@@ -2743,6 +3131,23 @@ def main() -> int:
         f"{attn_32k['bound_ms']:.4f}); ssd {ssd_t['ms']:.3f} ms (bound "
         f"{ssd_t['bound_ms']:.3f})")
 
+    # -- phase 9: training ------------------------------------------------
+    t0 = time.perf_counter()
+    mamba_train = train_model("mamba2-780m", lines, holds=True)
+    check(mamba_train["launches"] == {
+        "bsr_spmv": 0, "decode_attn": 0, "ssd": 2 * 48 * TRAIN_STEPS},
+        f"mamba2-780m training launches {mamba_train['launches']} != "
+        f"{2 * 48 * TRAIN_STEPS} ssd (forward and remat recompute)")
+    ssd_train = time_ssd_training(gen, 48, mamba_train["launches"]["ssd"])
+    lines.append({"ssd_training": ssd_train})
+    qwen_train = train_model("qwen3-4b", lines)
+    check(qwen_train["launches"] == {"bsr_spmv": 0, "decode_attn": 0,
+                                     "ssd": 0},
+          f"qwen3-4b training launched {qwen_train['launches']}")
+    log(f"phase 9 in {time.perf_counter() - t0:.1f}s: ssd forward "
+        f"{ssd_train['forward_ms']:.3f} ms, plain backward "
+        f"{ssd_train['plain_backward_ms']:.3f} ms")
+
     for line in lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": [spmv_entry, *spmv_16bit, {
@@ -2751,7 +3156,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/decode_attn/kernel.py:59",
         "launches": qwen["launches"]["decode_attn"],
         "launches_by_arch": {r["arch"]: r["launches"]["decode_attn"]
-                             for r in (qwen, granite, jamba)},
+                             for r in (qwen, granite, jamba,
+                                       *served.values())},
         "max_abs_err": attn_t["max_abs_err"], "ms": attn_t["ms"],
         "plain_ms": attn_t["plain_ms"], "bound_ms": attn_t["bound_ms"],
         "bound_by": attn_t["bound_by"], "library_ms": attn_t["library_ms"],
@@ -2773,6 +3179,9 @@ def main() -> int:
         "forward_launches_by_arch": {r["arch"]:
                                      r["forward_check_ssd_launches"]
                                      for r in (mamba, jamba)},
+        "launches_training": mamba_train["launches"]["ssd"],
+        "training_forward_ms": ssd_train["forward_ms"],
+        "training_plain_backward_ms": ssd_train["plain_backward_ms"],
         "max_abs_err": ssd_t["max_abs_err"], "ms": ssd_t["ms"],
         "plain_ms": ssd_t["plain_ms"], "bound_ms": ssd_t["bound_ms"],
         "bound_by": ssd_t["bound_by"], "library_ms": None,

@@ -15,9 +15,17 @@ chunk length; ``chunk`` moves only the rounding) and takes dh <= 64 and
 ds <= 128, multiples of 8; the float32 instance walks ``chunk``-step
 chunks on the CUDA cores (``csrc/ssd.cu``).
 
-A tensor on the CPU goes to the plain version (``ref.ssd_chunked_ref``); a
-tensor on a CUDA device launches the kernel or raises.  Nothing falls back.
-``ssd_chunked.launches`` counts kernel launches, never plain calls.
+A tensor on the CPU goes to the plain version (``ref.ssd_chunked_ref``),
+which autograd differentiates; a tensor on a CUDA device launches the
+kernel or raises.  Nothing falls back.  ``ssd_chunked.launches`` counts
+kernel launches, never plain calls.
+
+On the card every call runs as ``SSDFunction``, whose forward is the
+kernel and whose backward is the VJP of the plain version, recomputed from
+the saved inputs (where no input requires a gradient, autograd records
+nothing).  That is the
+reference's own arithmetic (it differentiates the plain ``ssd_jax``; its
+Pallas kernel has no backward), so no backward kernel exists to port.
 """
 from __future__ import annotations
 
@@ -101,6 +109,41 @@ def ssd_chunked(x, b, c, a, *, chunk: int = 128, return_state: bool = False):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunked runs on 'cpu' or 'cuda', got "
                          f"{x.device}")
+    y, h_last = SSDFunction.apply(x, b, c, a, chunk, return_state)
+    return (y, h_last) if return_state else y
+
+
+class SSDFunction(torch.autograd.Function):
+    """The kernel forward, the plain version's VJP backward (module
+    docstring).  Returns (y, final state or None)."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, a, chunk: int, return_state: bool):
+        ctx.save_for_backward(x, b, c, a)
+        ctx.chunk = chunk
+        ctx.return_state = return_state
+        out = _launch(x, b, c, a, chunk, return_state)
+        return out if return_state else (out, None)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(saved, ctx.needs_input_grad[:4])]
+        with torch.enable_grad():
+            out = ssd_chunked_ref(*inputs, chunk=ctx.chunk,
+                                  return_state=ctx.return_state)
+        # an unused state's gradient arrives as zeros (materialized)
+        outs = out if ctx.return_state else (out,)
+        got = iter(torch.autograd.grad(
+            outs, [t for t in inputs if t.requires_grad],
+            (grad_y, grad_h)[:len(outs)]))
+        return (*(next(got) if t.requires_grad else None for t in inputs),
+                None, None)
+
+
+def _launch(x, b, c, a, chunk: int, return_state: bool):
+    """One launch of the kernel on CUDA tensors checked by ``_check``."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"ssd kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")

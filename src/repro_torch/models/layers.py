@@ -1,5 +1,5 @@
-"""Neural layers of the LM serving path: norms, RoPE, GQA attention, MLP
-and the Mamba-2 mixer, as plain functions over tensors.
+"""Neural layers of the LM path: norms, RoPE, GQA and MLA attention, MLP,
+MoE and the Mamba-2 mixer, as plain functions over tensors.
 
 Ported from ``src/repro/models/layers.py``, same parameter names and
 layouts.  Where the reference computes a Pallas kernel's function in plain
@@ -7,15 +7,19 @@ JAX, the port calls the hand-written kernel: single-token ``attention``
 with a cache calls ``kernels.decode_attn.decode_attention`` (the twin of
 ``flash_attention(..., causal=False, kv_lengths=...)`` at S == 1), and
 ``ssm_mixer`` calls ``kernels.ssd.ssd_chunked`` where the reference calls
-``ssd_jax``.  Prefill and training attention stay the plain blockwise
-``flash_attention``, and the MoE FFN's expert products plain batched
-matrix products (the reference leaves them to XLA).  MLA is not ported yet
-(``ROADMAP.md`` §A).
+``ssd_jax`` (an ``autograd.Function`` on the card, so training
+differentiates through it).  Prefill and training attention, and MLA at
+every S, stay the plain blockwise ``flash_attention`` as in the reference
+(MLA's keys are r + dr wide and its values r wide, which the decode
+kernel does not take); the MoE FFN's expert products are plain batched
+matrix products (the reference leaves them to XLA).
 
 The reference's cast points are kept: ``rms_norm`` computes in float32 and
 casts back, ``xdt`` and ``d_skip`` are cast to x's dtype, the SSM state is
 float32.  ``mlp``'s gelu is the tanh approximation (``jax.nn.gelu``'s
-default).  The decode cache is updated in place.
+default).  The decode cache is updated in place.  Every function is
+differentiable: an in-place update never touches a tensor that autograd
+saves, outside the decode cache's writes.
 """
 from __future__ import annotations
 
@@ -210,6 +214,78 @@ def attention(cfg: ModelConfig, p, x, positions, *, cache=None,
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (MiniCPM3 / DeepSeek-style latent KV)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator):
+    d, H, dt = cfg.d_model, cfg.num_heads, _dtype(cfg)
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    s = 1.0 / math.sqrt(d)
+    p = {
+        "w_dkv": _normal(gen, (d, r), dt, s),
+        "kv_norm": torch.ones((r,), dtype=dt, device=gen.device),
+        "w_uk": _normal(gen, (r, H, dn), dt, 1.0 / math.sqrt(r)),
+        "w_uv": _normal(gen, (r, H, dv), dt, 1.0 / math.sqrt(r)),
+        "w_kr": _normal(gen, (d, dr), dt, s),
+        "wo": _normal(gen, (H, dv, d), dt,
+                      1.0 / math.sqrt(H * dv * cfg.num_layers)),
+    }
+    if qr:
+        p["w_dq"] = _normal(gen, (d, qr), dt, s)
+        p["q_norm"] = torch.ones((qr,), dtype=dt, device=gen.device)
+        p["w_uq"] = _normal(gen, (qr, H, dn + dr), dt, 1.0 / math.sqrt(qr))
+    else:
+        p["wq"] = _normal(gen, (d, H, dn + dr), dt, s)
+    return p
+
+
+def mla_attention(cfg: ModelConfig, p, x, positions, *, cache=None,
+                  cache_len=None):
+    """Multi-head latent attention in the absorbed form: the score is
+    ``(q_nope·W_uk)·latent + q_rope·k_rope`` over one shared KV head, the
+    values are the latent, and ``W_uv`` and ``wo`` apply after attention.
+    cache: dict(latent (B, Smax, r), k_rope (B, Smax, dr)), written in
+    place at ``cache_len``.  The softmax scale is ``1/√(r + dr)``, the
+    reference's (``flash_attention`` over keys r + dr wide)."""
+    B, S, _ = x.shape
+    dn = cfg.qk_nope_dim
+    if cfg.q_lora_rank:
+        ql = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dq"]),
+                      p["q_norm"], cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", ql, p["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    latent = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]),
+                      p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(torch.einsum("bsd,dk->bsk", x, p["w_kr"])[:, :, None, :],
+                  positions, cfg.rope_theta)[:, :, 0, :]
+
+    new_cache, lengths = None, None
+    if cache is not None:
+        cl, cr = cache["latent"], cache["k_rope"]
+        idx = cache_len[:, None] + torch.arange(S, device=x.device)[None, :]
+        rows = torch.arange(B, device=x.device)[:, None]
+        cl[rows, idx] = latent
+        cr[rows, idx] = k_rope
+        new_cache = {"latent": cl, "k_rope": cr}
+        latent, k_rope = cl, cr
+        lengths = cache_len + S
+
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"])
+    qq = torch.cat([q_lat, q_rope], dim=-1)                 # (B,S,H,r+dr)
+    kk = torch.cat([latent, k_rope], dim=-1)[:, :, None, :]  # (B,Sk,1,r+dr)
+    ctx = flash_attention(qq, kk, latent[:, :, None, :],
+                          causal=cache is None or S > 1, kv_lengths=lengths,
+                          block_q=cfg.block_q, block_k=cfg.block_k)
+    out = torch.einsum("bshr,rhv->bshv", ctx, p["w_uv"])    # (B,S,H,dv)
+    return torch.einsum("bshv,hvd->bsd", out, p["wo"]), new_cache
+
+
+# ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
 
@@ -304,8 +380,12 @@ def moe_combine(table, slot, weight, order, K: int):
 def silu_stepwise(x):
     """x · sigmoid(x) as ``jax.nn.silu`` computes it, ``x · (1 / (1 +
     exp(-x)))`` with one rounding to x's dtype after each step (``F.silu``
-    rounds once), in one buffer besides x: in bfloat16 the MoE FFN then
-    agrees with the reference's on the CPU."""
+    rounds once): in bfloat16 the MoE FFN then agrees with the reference's
+    on the CPU.  Where autograd records, out of place (it saves exp's and
+    the reciprocal's outputs); elsewhere, as in serving, in one buffer
+    besides x.  Both give the same bits."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.reciprocal(torch.exp(torch.neg(x)) + 1) * x
     return torch.neg(x).exp_().add_(1).reciprocal_().mul_(x)
 
 
@@ -348,6 +428,7 @@ def moe_ffn(cfg: ModelConfig, p, x):
     rows = torch.cat([x.reshape(N, d), x.new_zeros((1, d))])
     h = rows[src].reshape(G, E * cap + 1, d)[:, :-1].reshape(G, E, cap, d)
     act = silu_stepwise if cfg.mlp_type != "gelu" else gelu
+    # in place: autograd saves neither act's output nor the product
     hidden = act(torch.einsum("gecd,edf->gecf", h, p["w_gate"])).mul_(
         torch.einsum("gecd,edf->gecf", h, p["w_up"]))
     out_e = torch.einsum("gecf,efd->gecd", hidden, p["w_down"])

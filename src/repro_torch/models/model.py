@@ -1,4 +1,4 @@
-"""Decoder stack of the LM serving path: a ``Decoder`` module of sub-layers.
+"""Decoder stack of the LM path: a ``Decoder`` module of sub-layers.
 
 Ported from ``src/repro/models/model.py``.  The reference scans
 ``num_layers / pattern_period`` super-blocks over parameters stacked on
@@ -9,8 +9,9 @@ that axis; here each sub-layer is its own ``Block`` in an ``nn.ModuleList``
 left out.
 
 API:
-  init_params(cfg, seed, device)          -> Decoder
-  forward(cfg, params, inputs)            -> logits                (B, S, V)
+  init_params(cfg, seed, device) -> Decoder   (frozen)
+  forward(cfg, params, inputs, remat=False)
+                                          -> logits                (B, S, V)
   init_cache(cfg, batch, max_len, device) -> cache
   decode_step(cfg, params, cache, tokens, cache_len)
                                           -> (logits, cache)
@@ -19,9 +20,18 @@ API:
 
 The cache keeps the reference's pytree layout, ``{"pos{p}": {leaf: tensor
 stacked on n_super}}``, and ``decode_step`` updates it in place (the
-returned cache is the same object).  Dense GQA, SSM, MoE and hybrid
-(jamba: attention at i % 8 == 4, MoE at odd i, period 8) archs are
-ported; MLA raises ``NotImplementedError`` (``ROADMAP.md`` §A).
+returned cache is the same object).  Every arch of the reference is
+ported: dense GQA, MLA, SSM, MoE, hybrid (jamba: attention at i % 8 == 4,
+MoE at odd i, period 8) and the embedding-input stubs.
+
+``init_params`` returns frozen parameters; ``forward`` builds an autograd
+graph once they require gradients (``params.requires_grad_()``, the
+module's own method); ``decode_step`` and
+``serve.generate`` run under ``torch.no_grad()``.  ``remat=True`` wraps
+each super-block in ``torch.utils.checkpoint`` (non-reentrant), where the
+reference applies ``jax.checkpoint`` with
+``dots_with_no_batch_dims_saveable``: the same numbers, another saved set
+(the port saves only each super-block's input).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import types
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -38,12 +49,6 @@ from .config import ModelConfig
 
 def _dt(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA is not ported yet (ROADMAP.md §A)")
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -69,11 +74,11 @@ class Block(nn.Module):
 
 class Decoder(nn.Module):
     """Parameters of the decoder: ``embed``/``unembed``, ``final_norm`` and
-    ``layers`` (one ``Block`` per sub-layer)."""
+    ``layers`` (one ``Block`` per sub-layer), frozen until
+    ``requires_grad_()``."""
 
     def __init__(self, cfg: ModelConfig, blocks: list[dict], top: dict):
         super().__init__()
-        _check_supported(cfg)
         period = cfg.pattern_period
         self.layers = nn.ModuleList(Block(cfg, i % period, t)
                                     for i, t in enumerate(blocks))
@@ -89,7 +94,8 @@ def _init_sublayer(cfg: ModelConfig, pos: int, gen: torch.Generator):
     dev, dt = gen.device, _dt(cfg)
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
     if cfg.layer_kind(pos) == "attn":
-        p["mixer"] = L.init_attention(cfg, gen)
+        p["mixer"] = (L.init_mla if cfg.attn_type == "mla"
+                      else L.init_attention)(cfg, gen)
     else:
         p["mixer"] = L.init_ssm(cfg, gen)
     if cfg.d_ff > 0:
@@ -115,8 +121,8 @@ def _init_top(cfg: ModelConfig, gen: torch.Generator) -> dict:
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Decoder:
     """Random weights with the reference's scales and per-leaf dtypes,
     drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``
-    (other bits than the reference's ``jax.random``)."""
-    _check_supported(cfg)
+    (other bits than the reference's ``jax.random``), frozen; training
+    calls ``requires_grad_()`` on the result."""
     dev = resolve_device(device)
     period = cfg.pattern_period
     if cfg.num_layers % period:
@@ -135,8 +141,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Decoder:
 def _apply_block(cfg, blk: Block, x, positions, cache, cache_len, mode):
     h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
     if blk.kind == "attn":
-        y, new_cache = L.attention(cfg, blk.mixer, h, positions,
-                                   cache=cache, cache_len=cache_len)
+        attn = L.mla_attention if cfg.attn_type == "mla" else L.attention
+        y, new_cache = attn(cfg, blk.mixer, h, positions, cache=cache,
+                            cache_len=cache_len)
     else:
         state = cache if mode == "decode" else (
             "prefill" if mode == "prefill" else None)
@@ -148,10 +155,23 @@ def _apply_block(cfg, blk: Block, x, positions, cache, cache_len, mode):
     return x, new_cache
 
 
-def _stack(cfg, params: Decoder, x, positions, cache, cache_len, mode):
+def _super_block(cfg, blocks, x, positions):
+    for blk in blocks:
+        x, _ = _apply_block(cfg, blk, x, positions, None, None, "train")
+    return x
+
+
+def _stack(cfg, params: Decoder, x, positions, cache, cache_len, mode,
+           remat: bool = False):
     """Run every block; with a cache, write each block's new state into its
-    slot of the stacked cache."""
+    slot of the stacked cache.  ``remat`` (no cache) recomputes each
+    super-block in the backward pass from its input."""
     period = cfg.pattern_period
+    if remat and cache is None:
+        for s in range(0, len(params.layers), period):
+            x = checkpoint(_super_block, cfg, params.layers[s:s + period], x,
+                           positions, use_reentrant=False)
+        return x
     for i, blk in enumerate(params.layers):
         slot = None if cache is None else {
             k: t[i // period] for k, t in cache[f"pos{i % period}"].items()}
@@ -180,26 +200,34 @@ def _logits_out(cfg, params, x):
 # public entry points
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def forward(cfg: ModelConfig, params: Decoder, inputs):
-    """Full-sequence forward: inputs (B, S) tokens or (B, S, d) embeddings."""
+def forward(cfg: ModelConfig, params: Decoder, inputs, *,
+            remat: bool = False):
+    """Full-sequence forward: inputs (B, S) tokens or (B, S, d) embeddings.
+    Differentiable; ``remat`` checkpoints each super-block."""
     x = _embed_in(cfg, params, inputs)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _stack(cfg, params, x, positions, None, None, mode="train")
+    x = _stack(cfg, params, x, positions, None, None, mode="train",
+               remat=remat)
     return _logits_out(cfg, params, x)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                dtype=None):
     """Decode cache, stacked (n_super, ...) per pattern position, zeros."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or _dt(cfg)
     n_super = cfg.num_layers // cfg.pattern_period
     hd, KVH = cfg.head_dim_, cfg.num_kv_heads
     out = {}
     for pos in range(cfg.pattern_period):
-        if cfg.layer_kind(pos) == "attn":
+        if cfg.layer_kind(pos) == "attn" and cfg.attn_type == "mla":
+            c = {"latent": torch.zeros((n_super, batch, max_len,
+                                        cfg.kv_lora_rank), dtype=dt,
+                                       device=dev),
+                 "k_rope": torch.zeros((n_super, batch, max_len,
+                                        cfg.qk_rope_dim), dtype=dt,
+                                       device=dev)}
+        elif cfg.layer_kind(pos) == "attn":
             shape = (n_super, batch, max_len, KVH, hd)
             c = {"k": torch.zeros(shape, dtype=dt, device=dev),
                  "v": torch.zeros(shape, dtype=dt, device=dev)}
@@ -243,7 +271,6 @@ def _numel(tree) -> int:
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of ``init_params(cfg)``, from the shapes that the init
     functions make on the ``meta`` device: nothing is allocated."""
-    _check_supported(cfg)
     meta = types.SimpleNamespace(device=torch.device("meta"))
     period = cfg.pattern_period
     return sum(_numel(_init_sublayer(cfg, i % period, meta))
@@ -260,3 +287,16 @@ def active_param_count(cfg: ModelConfig) -> int:
     per_layer_expert = 3 * d * f
     n_moe = sum(1 for i in range(cfg.num_layers) if cfg.layer_is_moe(i))
     return int(total - n_moe * (E - K) * per_layer_expert)
+
+
+def reference_path(cfg: ModelConfig, name: str) -> tuple[str, int]:
+    """Where the parameter ``name`` of a :class:`Decoder` (``named_parameters``)
+    lies in the reference's pytree: its ``/``-joined path, and its index on
+    the leaf's stacked ``n_super`` axis (0 for an unstacked leaf).  Sorting
+    by it gives the reference's leaf order (``jax.tree.leaves``: sorted
+    dict keys), layer by layer within a stacked leaf."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return "/".join(parts), 0
+    i, period = int(parts[1]), cfg.pattern_period
+    return "/".join(["blocks", f"pos{i % period}", *parts[2:]]), i // period

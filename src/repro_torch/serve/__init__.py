@@ -1,3 +1,3 @@
-from .generate import generate, make_serve_step
+from .generate import generate, make_serve_step, next_inputs
 
-__all__ = ["generate", "make_serve_step"]
+__all__ = ["generate", "make_serve_step", "next_inputs"]

@@ -19,6 +19,17 @@ def make_serve_step(cfg):
     return step
 
 
+def next_inputs(cfg, tok):
+    """The next step's input for the sampled ids ``tok`` (B,): the ids
+    (B, 1), or for an embedding-stub arch the embedded token fed back,
+    ``jax.nn.one_hot(tok, d_model)``'s row (B, 1, d): one-hot below
+    ``d_model``, all zeros at or above it, in the model's dtype."""
+    if cfg.input_mode == "tokens":
+        return tok[:, None]
+    rows = torch.arange(cfg.d_model, device=tok.device)
+    return (tok[:, None, None] == rows).to(getattr(torch, cfg.dtype))
+
+
 def _sample(last, temperature, generator):
     """Gumbel-max draw from softmax(last / temperature), as
     ``jax.random.categorical`` draws, but with the generator's bits."""
@@ -65,11 +76,7 @@ def generate(cfg, params, prompts, max_new_tokens: int, *,
             tok = torch.argmax(last, dim=-1)
         out.append(tok)
         seen.append(last)
-        if cfg.input_mode == "tokens":
-            nxt = tok[:, None]
-        else:  # embedding-stub archs feed the embedded token back
-            nxt = torch.nn.functional.one_hot(tok, cfg.d_model)[:, None, :]
-        logits, cache = step(params, cache, nxt, lens)
+        logits, cache = step(params, cache, next_inputs(cfg, tok), lens)
         last = logits[:, 0]
         lens = lens + 1
     tokens = torch.stack(out, dim=1)

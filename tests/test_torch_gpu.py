@@ -2,7 +2,10 @@
 their plain versions, the device-built layout and PageRank against the
 same code on the CPU, the reduced LM configs on the card against the
 CPU, and the sampling service, feature store and prefetch pipeline on
-the card against the CPU and the numpy oracle, bitwise.  They skip where
+the card against the CPU and the numpy oracle, bitwise, the ``ssd``
+autograd.Function's gradients against autograd through its plain
+version, and a reduced train step on the card against the CPU.  They
+skip where
 ``torch.cuda.is_available()`` is False.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -35,7 +38,7 @@ from repro_torch.bsp import (PartitionRuntime, bfs, build_app,
                              spawn_machines, sssp)
 from repro_torch.core import scaled_paper_cluster, windgp
 from repro_torch.data import rmat
-from repro_torch.configs import get_reduced
+from repro_torch.configs import ARCHS, get_reduced
 from repro_torch.kernels import bsr_spmv as port_k
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_ref)
@@ -391,6 +394,10 @@ STATE_TOL = dict(rtol=2e-4, atol=2e-4)
     (3, 8, 2, 128, 300),      # GQA, S not a multiple of the split or tile
     (2, 4, 4, 32, 77),        # MHA, the reduced configs' head dim
     (2, 16, 1, 64, 600),      # MQA
+    (3, 32, 2, 128, 300),     # glm4-9b: G = 16, the CUDA-core body in bf16
+    (3, 40, 8, 128, 300),     # qwen3-14b: G = 5
+    (3, 24, 24, 64, 300),     # musicgen-medium: G = 1
+    (3, 8, 1, 256, 300),      # paligemma-3b: dh 256, G = 8
 ])
 def test_decode_attn_matches_plain(cuda, dtype, B, H, KVH, dh, S):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -550,24 +557,145 @@ def test_ssd_chunk_edges(cuda, dtype, B, T, nh, G, dh, ds, chunk, decay):
     torch.testing.assert_close(h, h_ref, **STATE_TOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m",
-                                  "granite-moe-3b-a800m", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_model_card_matches_cpu(cuda, arch):
+    """Every arch at its reduced config: forward and greedy tokens on the
+    card against the CPU.  MLA runs the plain blockwise attention at every
+    S, so no kernel launches for it."""
     cfg = get_reduced(arch)
-    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
-                            generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(3)
+    if cfg.input_mode == "tokens":
+        prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    else:
+        prompts = torch.randn((2, 40, cfg.d_model), generator=gen)
     on_cpu = init_params(cfg, 0, "cpu")
     on_gpu = init_params(cfg, 0, "cpu").to(cuda)    # .to moves in place
     got = forward(cfg, on_gpu, prompts.to(cuda))
     torch.testing.assert_close(got.cpu(), forward(cfg, on_cpu, prompts),
                                rtol=1e-4, atol=1e-4)
     kern = (ssd_chunked if cfg.family in ("ssm", "hybrid")
-            else decode_attention)
-    before = kern.launches
+            else None if cfg.attn_type == "mla" else decode_attention)
+    before = (ssd_chunked.launches, decode_attention.launches)
     toks = generate(cfg, on_gpu, prompts.to(cuda), 4)
-    assert kern.launches > before
+    if kern is None:
+        assert (ssd_chunked.launches, decode_attention.launches) == before
+    else:
+        assert kern.launches > before[kern is decode_attention]
     assert torch.equal(toks.cpu(),
                        generate(cfg, on_cpu, prompts, 4, device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("return_state", [False, True])
+@pytest.mark.parametrize("B,T,nh,G,dh,ds", [(2, 300, 48, 1, 64, 128),
+                                            (1, 200, 128, 1, 64, 16)])
+def test_ssd_gradients_match_plain_autograd(cuda, dtype, return_state, B, T,
+                                            nh, G, dh, ds):
+    """The ``ssd`` autograd.Function at mamba2-780m's and jamba's widths:
+    the forward is the kernel (one launch), the outputs carry a
+    ``grad_fn``, and the gradients of x, b, c and a equal autograd
+    through the plain version bitwise: the backward is that plain
+    version's VJP, recomputed from the same inputs and output gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((B, T, nh, dh), generator=gen, device=cuda).to(dtype)
+    b = (0.5 * torch.randn((B, T, G, ds), generator=gen,
+                           device=cuda)).to(dtype)
+    c = (0.5 * torch.randn((B, T, G, ds), generator=gen,
+                           device=cuda)).to(dtype)
+    a = -torch.nn.functional.softplus(
+        torch.randn((B, T, nh), generator=gen, device=cuda))
+    wy = torch.randn((B, T, nh, dh), generator=gen, device=cuda)
+    wh = torch.randn((B, nh, ds, dh), generator=gen, device=cuda)
+
+    def grads(fn):
+        ins = [v.clone().requires_grad_() for v in (x, b, c, a)]
+        out = fn(*ins, chunk=128, return_state=return_state)
+        y, h = out if return_state else (out, None)
+        assert y.grad_fn is not None
+        loss = (y.float() * wy).sum()
+        if return_state:
+            assert h.grad_fn is not None
+            loss = loss + (h * wh).sum()
+        loss.backward()
+        return [v.grad for v in ins]
+
+    before = ssd_chunked.launches
+    got = grads(ssd_chunked)
+    torch.cuda.synchronize()
+    assert ssd_chunked.launches == before + 1
+    want = grads(ssd_chunked_ref)
+    for name, g, w in zip("xbca", got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "qwen3-4b",
+                                  "minicpm3-4b"])
+def test_reduced_train_step_card_matches_cpu(cuda, arch):
+    """One train step (remat, two microbatches) on the card against the
+    same step on the CPU: loss and gradient norm within 1e-4, every
+    parameter within 1e-4 relative L2 after the update."""
+    from repro_torch.train import adamw_init, make_train_step
+    cfg = get_reduced(arch)
+    gen = torch.Generator().manual_seed(4)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (4, 40),
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (4, 40),
+                                     generator=gen)}
+    step = make_train_step(cfg, microbatches=2, remat=True)
+    out = []
+    for dev in ("cpu", cuda):
+        params = init_params(cfg, 0, "cpu").requires_grad_().to(dev)
+        before = ssd_chunked.launches
+        params, _, m = step(params, adamw_init(params),
+                            {k: v.to(dev) for k, v in batch.items()})
+        if dev != "cpu" and cfg.family == "ssm":
+            assert ssd_chunked.launches > before
+        out.append((params.cpu(), float(m["loss"]), float(m["grad_norm"])))
+    (p0, l0, n0), (p1, l1, n1) = out
+    assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(n1 - n0) <= 1e-4 * n0
+    for (name, a), (_, b) in zip(p0.named_parameters(),
+                                 p1.named_parameters()):
+        a, b = a.detach(), b.detach()
+        assert float((a - b).norm() / a.norm()) <= 1e-4, name
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "qwen3-4b"])
+def test_reduced_bf16_gradients_card_match_cpu(cuda, arch):
+    """bfloat16 gradients on the card (mamba2-780m through the ssd kernel's
+    bfloat16 instance and its autograd.Function) against a float32 truth,
+    the same weights in float32 on the CPU: the whole gradient's relative
+    L2 from it at most twice the CPU's bfloat16 gradient's own, each
+    leaf's at most 4 times plus 1e-3, and the loss within 2e-3 relative
+    of the CPU's bfloat16 loss (the bounds of ``test_torch_train``'s
+    bfloat16 step against the reference, widened once more for another
+    summation order)."""
+    import copy
+    from repro_torch.train import loss_and_grads
+    cfg = dataclasses.replace(get_reduced(arch), dtype="bfloat16")
+    params = init_params(cfg, 0, "cpu").requires_grad_()
+    truth_params = copy.deepcopy(params).float()
+    gen = torch.Generator().manual_seed(8)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 40), generator=gen)
+             for k in ("inputs", "labels")}
+    _, truth = loss_and_grads(dataclasses.replace(cfg, dtype="float32"),
+                              truth_params, batch, remat=False)
+    cpu_loss, cpu = loss_and_grads(cfg, params, batch, remat=True)
+    before = ssd_chunked.launches
+    card_loss, card = loss_and_grads(
+        cfg, params.to(cuda), {k: v.to(cuda) for k, v in batch.items()},
+        remat=True)
+    if cfg.family == "ssm":
+        assert ssd_chunked.launches > before
+    assert abs(float(card_loss) - float(cpu_loss)) \
+        <= 2e-3 * abs(float(cpu_loss))
+
+    def rel(got, want):
+        return float((got.float() - want).norm() / want.norm())
+    for name, want in truth.items():
+        own = rel(cpu[name], want)
+        assert rel(card[name].cpu(), want) <= 4 * own + 1e-3, (name, own)
+    whole = lambda g: torch.cat([v.cpu().float().ravel() for v in g.values()])
+    assert rel(whole(card), whole(truth)) <= 2 * rel(whole(cpu), whole(truth))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,4 +1,6 @@
-"""LM serving slice of the port against the JAX package, on the CPU.
+"""LM serving path of the port against the JAX package, on the CPU: every
+arch of the reference's registry (MLA and the embedding-input stubs
+included) at its reduced config.
 
 Inputs are made with numpy from a seed and go through the JAX function and
 its port.  The Pallas kernels run as ``tests/test_kernels.py`` runs them
@@ -30,10 +32,10 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_ref)
 from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
-from repro_torch.models import (decode_step, forward, init_cache,
-                                init_params)
+from repro_torch.models import (active_param_count, decode_step, forward,
+                                init_cache, init_params, param_count)
 from repro_torch.models import layers as TL
-from repro_torch.serve import generate
+from repro_torch.serve import generate, next_inputs
 
 
 def t(a):
@@ -48,6 +50,13 @@ def tree_t(tree):
 def close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol,
                                atol=tol)
+
+
+def model_inputs(cfg, rng, B, S):
+    """(B, S) token ids, or (B, S, d) float32 embeddings for a stub arch."""
+    if cfg.input_mode == "tokens":
+        return rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +187,70 @@ def test_ssm_mixer_matches_jax_in_all_modes():
         close(n_t[k], n_j[k], 1e-5)
 
 
+@pytest.mark.parametrize("case", ["prefill", "decode", "q_lora", "wq"])
+def test_mla_attention_matches_jax(case):
+    """MLA's absorbed form against the reference in float32: prefill
+    without a cache; decode with ragged ``cache_len`` into a cache; the
+    ``q_lora_rank`` branch (prefill into a cache) and the ``wq`` branch."""
+    cfg = jax_reduced("minicpm3-4b")
+    if case == "wq":
+        cfg = dataclasses.replace(cfg, q_lora_rank=0)
+    p = JL.init_mla(cfg, jax.random.PRNGKey(9))
+    assert ("w_uq" in p) == (case != "wq") and ("wq" in p) == (case == "wq")
+    pt = tree_t(p)
+    rng = np.random.default_rng(9)
+    B, Smax = 3, 24
+    if case in ("prefill", "wq"):
+        x = rng.standard_normal((B, 17, cfg.d_model)).astype(np.float32)
+        pos = np.broadcast_to(np.arange(17), (B, 17)).astype(np.int32)
+        y_j, _ = JL.mla_attention(cfg, p, x, pos)
+        y_t, c_t = TL.mla_attention(cfg, pt, t(x), t(pos))
+        assert c_t is None
+        close(y_t, y_j, 1e-5)
+        return
+    # a cache holding ragged prefixes, then one step (decode) or a prefill
+    # from an empty cache (q_lora)
+    S = 1 if case == "decode" else 11
+    lens = np.array([5, 0, 13], np.int32) if case == "decode" \
+        else np.zeros(B, np.int32)
+    cache = {"latent": rng.standard_normal(
+                 (B, Smax, cfg.kv_lora_rank)).astype(np.float32),
+             "k_rope": rng.standard_normal(
+                 (B, Smax, cfg.qk_rope_dim)).astype(np.float32)}
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    pos = (lens[:, None] + np.arange(S)[None, :]).astype(np.int32)
+    y_j, c_j = JL.mla_attention(cfg, p, x, pos, cache=cache, cache_len=lens)
+    c_t = {k: t(v) for k, v in cache.items()}
+    y_t, c_t = TL.mla_attention(cfg, pt, t(x), t(pos), cache=c_t,
+                                cache_len=t(lens))
+    close(y_t, y_j, 1e-5)
+    for k in ("latent", "k_rope"):
+        close(c_t[k], c_j[k], 1e-5)
+
+
+def test_embedding_feedback_past_d_model_matches_jax():
+    """An embedding-input arch feeds the greedy token back as
+    ``jax.nn.one_hot(tok, d_model)``: all zeros for tok >= d_model.  The
+    unembedding's first d_model columns are zeroed, so every argmax lands
+    at or above d_model."""
+    cfg = jax_reduced("musicgen-medium")
+    assert cfg.vocab_size > cfg.d_model
+    params = jax_init_params(cfg, jax.random.PRNGKey(0))
+    params = dict(params, unembed=params["unembed"].at[:, :cfg.d_model]
+                  .set(0.0))
+    ported = params_from_numpy(get_reduced("musicgen-medium"),
+                               jax.tree.map(np.asarray, params), "cpu")
+    prompts = model_inputs(cfg, np.random.default_rng(10), 2, 6)
+    want = np.asarray(jax_generate(cfg, params, prompts, 4))
+    assert (want >= cfg.d_model).all()
+    got = generate(cfg, ported, t(prompts), 4, device="cpu")
+    assert torch.equal(got, t(want).long())
+    fed = next_inputs(cfg, torch.tensor([3, cfg.d_model, cfg.vocab_size - 1]))
+    assert fed.shape == (3, 1, cfg.d_model) and fed.dtype == torch.float32
+    assert torch.equal(fed, t(jax.nn.one_hot(
+        np.array([3, cfg.d_model, cfg.vocab_size - 1]), cfg.d_model))[:, None])
+
+
 # ---------------------------------------------------------------------------
 # the whole slice
 # ---------------------------------------------------------------------------
@@ -196,7 +269,7 @@ def test_forward_and_decode_match_jax(models):
     cfg, params, ported = models
     rng = np.random.default_rng(6)
     B, P, steps = 2, 21, 3
-    toks = rng.integers(0, cfg.vocab_size, (B, P + steps)).astype(np.int32)
+    toks = model_inputs(cfg, rng, B, P + steps)
     close(forward(cfg, ported, t(toks)), jax_forward(cfg, params, toks),
           1e-4)
     max_len = P + steps + 2
@@ -216,8 +289,7 @@ def test_forward_and_decode_match_jax(models):
 
 def test_generate_matches_jax(models):
     cfg, params, ported = models
-    prompts = np.random.default_rng(7).integers(
-        0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    prompts = model_inputs(cfg, np.random.default_rng(7), 2, 9)
     want = jax_generate(cfg, params, prompts, 5)
     got = generate(cfg, ported, t(prompts), 5, device="cpu")
     assert torch.equal(got, t(want).long())
@@ -254,14 +326,28 @@ def test_configs_equal_reference(arch):
         dataclasses.asdict(jax_reduced(arch))
 
 
-def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("minicpm3-4b")
-    mla = dataclasses.replace(get_reduced("qwen3-4b"), attn_type="mla",
-                              kv_lora_rank=32, qk_nope_dim=16,
-                              qk_rope_dim=16, v_head_dim=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(mla, 0, "cpu")
+def test_unknown_arch_raises():
+    for get in (get_config, get_reduced):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("llama-9000")
+
+
+def test_every_reference_arch_resolves():
+    from repro import configs as ref
+    from repro.models import active_param_count as jax_active
+    from repro.models import param_count as jax_count
+    from repro_torch import configs
+    assert ARCHS == ref.ARCHS
+    assert configs.SHAPES == ref.SHAPES
+    assert configs.LONG_CONTEXT_ARCHS == ref.LONG_CONTEXT_ARCHS
+    assert configs.cells() == ref.cells()
+    for arch in ARCHS:
+        for cfg in (get_config(arch), get_reduced(arch)):
+            assert param_count(cfg) == jax_count(cfg), cfg.name
+            assert active_param_count(cfg) == jax_active(cfg), cfg.name
+        params = init_params(get_reduced(arch), 0, "cpu")
+        assert sum(p.numel() for p in params.parameters()) == \
+            param_count(get_reduced(arch))
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):

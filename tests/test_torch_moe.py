@@ -158,6 +158,23 @@ def test_silu_stepwise_matches_jax_in_bf16():
                                   want)
 
 
+def test_silu_stepwise_recording_gives_the_same_bits():
+    """Where autograd records, ``silu_stepwise`` runs out of place; its
+    bits are the in-place (serving) version's, and its gradient is
+    ``F.silu``'s within float32 rounding."""
+    x = t((np.random.default_rng(6).standard_normal(1 << 14) * 4).astype(
+        ml_dtypes.bfloat16))
+    xg = x.clone().requires_grad_()
+    got = TL.silu_stepwise(xg)
+    assert got.grad_fn is not None
+    assert torch.equal(got.detach(), TL.silu_stepwise(x))
+    x32 = x.float().requires_grad_()
+    TL.silu_stepwise(x32).sum().backward()
+    want = x.float().requires_grad_()
+    torch.nn.functional.silu(want).sum().backward()
+    torch.testing.assert_close(x32.grad, want.grad, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("G,n,K,E", [(1, 37, 8, 40), (2, 50, 2, 4),
                                      (1, 9, 8, 8)])
