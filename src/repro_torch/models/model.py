@@ -17,6 +17,7 @@ API:
                                           -> (logits, cache)
       S > 1 with an all-zero cache_len acts as prefill.
   param_count(cfg), active_param_count(cfg) -> int  (from shapes)
+  meta_params(cfg) -> Decoder on the meta device   (names, shapes, dtypes)
 
 The cache keeps the reference's pytree layout, ``{"pos{p}": {leaf: tensor
 stacked on n_super}}``, and ``decode_step`` updates it in place (the
@@ -262,19 +263,19 @@ def decode_step(cfg: ModelConfig, params: Decoder, cache, tokens, cache_len):
 # parameter accounting
 # ---------------------------------------------------------------------------
 
-def _numel(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_numel(v) for v in tree.values())
-    return tree.numel()
+def meta_params(cfg: ModelConfig) -> Decoder:
+    """The :class:`Decoder` of ``init_params(cfg)`` on the ``meta``
+    device: its parameters' names, shapes and dtypes, nothing allocated."""
+    meta = types.SimpleNamespace(device=torch.device("meta"))
+    period = cfg.pattern_period
+    return Decoder(cfg, [_init_sublayer(cfg, i % period, meta)
+                         for i in range(cfg.num_layers)],
+                   _init_top(cfg, meta))
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Parameters of ``init_params(cfg)``, from the shapes that the init
-    functions make on the ``meta`` device: nothing is allocated."""
-    meta = types.SimpleNamespace(device=torch.device("meta"))
-    period = cfg.pattern_period
-    return sum(_numel(_init_sublayer(cfg, i % period, meta))
-               for i in range(cfg.num_layers)) + _numel(_init_top(cfg, meta))
+    """Parameters of ``init_params(cfg)``, from :func:`meta_params`."""
+    return sum(p.numel() for p in meta_params(cfg).parameters())
 
 
 def active_param_count(cfg: ModelConfig) -> int:

@@ -509,6 +509,33 @@ def test_decode_attn_split_edges(cuda, dtype, B, H, KVH, dh, S):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_long_context(cuda, dtype):
+    """jamba-v0.1-52b's long_500k decode: one sequence over 524,288
+    positions (32/8 heads of 128), at full length, one short, and one past
+    the planned split; the newest key left out fails the hold."""
+    S = 524288
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, 32, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((1, S, 8, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, S, 8, 128), generator=gen, device=cuda).to(dtype)
+    split = attn_k.plan(q, k)["split_len"]
+    tol = TOL[dtype]["decode"]
+    for n in (S, S - 1, split + 1):
+        lens = torch.tensor([n], dtype=torch.int32, device=cuda)
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        want = decode_attention_ref(q, k, v, lens)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(
+            decode_attention(q, k, v, lens - 1).float(), want.float(), **tol)
+    for counters in attn_k._COUNTERS.values():
+        assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_occupancy_at_serving_widths(cuda, dtype):
     # the CTAs an SM holds, as the runtime reports them for each launch:
     # decode_attn at qwen3-4b's widths holds the plan's CTAS_PER_SM, and
@@ -534,6 +561,7 @@ def test_occupancy_at_serving_widths(cuda, dtype):
     (1, 200, 4, 1, 64, 128, 128, 5.0),    # a = -5
     (2, 300, 128, 1, 64, 16, 128, None),  # jamba: nh 128, ds 16 (padded)
     (1, 1000, 128, 1, 64, 16, 128, 5.0),  # jamba's widths, a = -5
+    (8, 2048, 128, 1, 64, 16, 128, None),  # jamba's prefill shape
 ])
 def test_ssd_chunk_edges(cuda, dtype, B, T, nh, G, dh, ds, chunk, decay):
     gen = torch.Generator(device=cuda).manual_seed(4)

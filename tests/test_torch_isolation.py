@@ -44,7 +44,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.sampling.service, repro_torch.sampling.features, "
             "repro_torch.sampling.pipeline, repro_torch.bsp.distributed, "
             "repro_torch.sharding.windgp_placement, repro_torch.train, "
-            "repro_torch.launch.train, repro_torch.data.lm_data; "
+            "repro_torch.launch.train, repro_torch.data.lm_data, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.launch.perf, repro_torch.launch.roofline, "
+            "repro_torch.sharding.specs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]; "
             "assert not bad, bad")

@@ -285,7 +285,10 @@ STEP_CASES = [  # (arch, microbatches, remat, compress)
     ("mamba2-780m", 1, True, None), ("mamba2-780m", 2, False, "int8"),
     ("granite-moe-3b-a800m", 1, False, "int8"),
     ("granite-moe-3b-a800m", 2, True, None),
-    ("musicgen-medium", 1, True, None), ("musicgen-medium", 2, False, "int8")]
+    ("musicgen-medium", 1, True, None), ("musicgen-medium", 2, False, "int8"),
+    ("minicpm3-4b", 2, True, None), ("jamba-v0.1-52b", 1, True, "int8"),
+    ("glm4-9b", 2, False, "int8"), ("paligemma-3b", 1, False, None),
+    ("phi3.5-moe-42b-a6.6b", 2, True, "int8"), ("qwen3-14b", 1, True, None)]
 
 
 def jax_grads(cfg, params, batch, k, remat):
@@ -389,7 +392,19 @@ def test_train_step_matches_jax(arch, k, remat, compress):
 
 BF16_CASES = [  # (arch, microbatches, remat)
     ("qwen3-4b", 1, False), ("mamba2-780m", 2, True),
-    ("granite-moe-3b-a800m", 1, True), ("musicgen-medium", 2, False)]
+    ("granite-moe-3b-a800m", 1, True), ("musicgen-medium", 2, False),
+    ("minicpm3-4b", 2, False), ("jamba-v0.1-52b", 1, True)]
+
+
+#: archs whose reduced config's bfloat16 gradient norm, in the reference
+#: itself, misses the float32 truth by more than 2e-2: jamba-v0.1-52b reads
+#: 79.52 against 111.24 (its SSM stack in bf16 leaves 13-69 % relative L2
+#: a leaf on both sides; the port reads 94.70).  The clip scale 1/norm then
+#: leaves most elements' ``|g|·scale`` within 1e3·eps of AdamW's eps, where
+#: the two sides' gradients, 40 % apart, move the first step by more than
+#: a bfloat16 spacing: the updated parameters are no oracle there, and the
+#: case ends after the gradients and the norm
+REF_BF16_NORM_MISSES = ("jamba-v0.1-52b",)
 
 
 def bf16_ulp(x):
@@ -410,14 +425,16 @@ def test_train_step_matches_jax_in_bf16(arch, k, remat):
     0.63-1.23 whole and 0.66-2.15 for a leaf, both sides' errors 3-16 %
     a leaf; a leaf with no gradient reads 1).  The loss within 1e-3
     relative of the reference's bfloat16 loss, the gradient norm within
-    2e-2 of the truth's.  AdamW's first step moves an element by
-    ``lr·sign(g)`` rounded to the leaf's dtype, so where the reference's
-    gradient is at least 1e-2 of its leaf's largest and the two agree in
-    sign, the updated bfloat16 parameters are equal (at most 1e-3 of them
-    a neighbour) and the float32 ones (the SSM's ``a_log``, ``dt_bias``,
-    ``d_skip``, the router) within 1e-3·lr, since ``eps/|g|`` is left in
-    their step; elsewhere the two are within 2·lr plus one bfloat16
-    spacing."""
+    2e-2 of the truth's (where the reference's own misses it by more,
+    ``REF_BF16_NORM_MISSES``, no farther from it than the reference's, and
+    the updated parameters are not compared).  AdamW's first step moves an
+    element by ``lr·sign(g)`` rounded to the leaf's dtype, so where the
+    reference's gradient is at least 1e-2 of its leaf's largest and the
+    two agree in sign, the updated bfloat16 parameters are equal (at most
+    1e-3 of them a neighbour) and the float32 ones (the SSM's ``a_log``,
+    ``dt_bias``, ``d_skip``, the router) within 1e-3·lr, since ``eps/|g|``
+    is left in their step; elsewhere the two are within 2·lr plus one
+    bfloat16 spacing."""
     cfg = dataclasses.replace(jax_reduced(arch), dtype="bfloat16")
     pcfg = dataclasses.replace(get_reduced(arch), dtype="bfloat16")
     lr, wd = 1e-3, 0.01
@@ -454,6 +471,13 @@ def test_train_step_matches_jax_in_bf16(arch, k, remat):
         params, jax_adamw_init(params), jbatch)
     norm = np.sqrt(sum(np.sum(np.square(np.asarray(v, np.float64)))
                        for v in truth.values()))
+    if arch in REF_BF16_NORM_MISSES:
+        # the reference's own bfloat16 norm lies farther than 2e-2 from
+        # the truth: the port's may lie no farther than it
+        ref_off = abs(float(metrics["grad_norm"]) - norm)
+        assert ref_off > 2e-2 * norm
+        assert abs(float(got_m["grad_norm"]) - norm) <= ref_off
+        return
     np.testing.assert_allclose(float(got_m["grad_norm"]), norm, rtol=2e-2)
     np.testing.assert_allclose(float(metrics["grad_norm"]), norm, rtol=2e-2)
     got_new = stacked(pcfg, dict(got_p.named_parameters()))
