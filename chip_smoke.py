@@ -160,8 +160,9 @@ the script exit non-zero after it has printed what it measured):
    on a second call; it prints both makespans (WindGP and round-robin),
    the co-activation graph's size and the seconds of its parts;
    7e. the remaining archs at their published configs (glm4-9b and
-   qwen3-14b at 20 of 40 layers, musicgen-medium at 24 of 48, to keep the
-   whole run within 900 s), served as in 6: glm4-9b, qwen3-14b,
+   qwen3-14b at 5 of 40 layers, musicgen-medium at 6 of 48, minicpm3-4b
+   at 31 of 62, to keep the whole run within 800 s), served as in 6:
+   glm4-9b, qwen3-14b,
    minicpm3-4b (MLA: the plain blockwise attention at every S, no
    kernel), musicgen-medium and
    paligemma-3b (embedding-input stubs: (8, 2048, d) prompts drawn from
@@ -227,6 +228,46 @@ the script exit non-zero after it has printed what it measured):
    each printing its roofline terms, step ms, tokens/s, peak against
    dryrun's predicted bytes, mfu and memory share; a decode step may not
    take less than its weights and cache at 3.35 TB/s.
+11. 11a. expert-parallel MoE (``models/moe_shardmap.py``): one MoE layer
+   of phi3.5-moe-42b-a6.6b at its published width (E 16, K 2, d 4096,
+   d_ff 6400, 2.52 GB of bf16 experts) over a (data, model) = (2, 4)
+   group of 8 gloo ranks sharing the card, 4 experts a rank, on 8 × 2048
+   bf16 tokens from the seed, each rank's tokens and experts shared from
+   this process by CUDA IPC.  Held on every rank: at capacity factor 8 =
+   E / K (dropless on both paths) the gathered outputs within 2e-2 of
+   the one-device ``moe_ffn``'s in relative L2 and, on the tokens whose
+   top-2 experts agree on both paths (float32 router products over other
+   row counts can flip a near tie), within 2e-2 of max |y| (one bf16 unit
+   is 2^-8; a run with each rank holding the next rank's experts must
+   exceed it), in float32 (the first 1024 positions of each sequence)
+   within 1e-5 of max |y| on those tokens; at
+   the published factor 1.25 and at 1.0, which drops, within 2e-2 of a
+   one-process replay of ``_dispatch_local``/``_combine_local`` over
+   the same 8 shards, each rank dropping the replay's entries; the
+   float32 gradients of ``sum(y²)`` (router summed over every rank,
+   experts over ``data``) within rtol = atol = 5e-4 of ``moe_ffn``'s (the
+   router's in units of its largest element: a float32 sum over 8,192
+   tokens that the one-device layer itself misses its float64 value by
+   more than 5e-4).
+   Prints each rank's bf16 forward and forward + backward ms (CUDA
+   events, median of 3), the exchange's ``all_to_all`` ms and bytes a
+   call, the backward's all-reduce of the experts' gradients over
+   ``data`` (each timed alone), peak GB, and the one-device ``moe_ffn``
+   ms;
+   11b. elastic restore: mamba2-780m's published-config parameters saved
+   under ``build/`` and restored with ``shardings=`` onto a (2, 2) mesh
+   of 4 gloo ranks on the card: every leaf gathered by ``gather_leaf``
+   bitwise the one-device restore's, a ``forward`` on the gathered parameters
+   bitwise the one-device ``forward`` with ``ssd`` launched once a layer;
+   prints each rank's resident bytes against the model's and its restore
+   seconds;
+12. the examples: each ``examples/torch_*.py`` once on the card, all at
+   once as subprocesses, at its default size (the edge-list example on
+   an ``rmat(12)`` edge list with ``--pagerank --backend pallas``): exit
+   code 0, the quickstart's and the partition-and-PageRank example's TC
+   and RF equal to the port's ``core`` run here, PageRank's maxerr within
+   1e-5, and ``bsr_spmv`` launched once a superstep from the edge-list
+   example (``launches_examples`` in the kernel table line).
 
 It prints JSON lines (sizes, memory, times, checks, the kernel table
 line), the ``nvidia-smi`` name and power limit, and last
@@ -358,10 +399,14 @@ BF16_LOGITS_REL_L2 = {"qwen3-4b": 0.05, "mamba2-780m": 0.5,
 NEW_ARCHS = ("glm4-9b", "qwen3-14b", "minicpm3-4b", "musicgen-medium",
              "paligemma-3b")
 # their depth, where cut: phases 7f and 10 brought the smoke to 736–856 s
-# on an H100 (PERF.md), so three attention archs, whose wrong readings at
-# full depth (1.07, 1.27, 0.697) lie far above their 0.05 limit, run half
-# their layers
-NEW_ARCH_LAYERS = {"glm4-9b": 20, "qwen3-14b": 20, "musicgen-medium": 24}
+# on an H100 (PERF.md), and phases 11–12 add ~100 s, so three attention
+# archs, whose wrong readings at full depth (1.07, 1.27, 0.697) lie far
+# above their 0.05 limit (1.09, 1.27, 0.903 at a quarter), run an
+# eighth of their layers, and minicpm3-4b (95–106 s at full depth) half
+# of its: its wrong reading there is 0.138 (0.106 at 62 layers), its sound
+# one 0.0167
+NEW_ARCH_LAYERS = {"glm4-9b": 5, "qwen3-14b": 5, "musicgen-medium": 6,
+                   "minicpm3-4b": 31}
 # jamba-v0.1-52b (phase 7c): its full width at one pattern period of depth
 JAMBA_LAYERS = 8
 # phi3.5-moe-42b-a6.6b (phase 7f): its full width at the depth that
@@ -388,6 +433,44 @@ POD_COMPUTE = [0.5, 1.0, 1.0]
 POD_MEMORY = [20, 15, 15]
 POD_LINK = [1.0, 1.0, 1.5]
 
+# phase 11a: one MoE layer of phi3.5-moe-42b-a6.6b at its published width
+# over a (data, model) group of gloo ranks sharing the card.  E / K = 8 is
+# the capacity factor at which neither path drops.  The router's float32
+# products over a shard's rows and over all rows round apart, so a token
+# whose 2nd and 3rd experts nearly tie may route to another expert on the
+# two paths (1 of 16,384 tokens in PR 22's first run) and take another
+# output: the outputs are held by their relative L2 distance over all
+# tokens, and by max |d| over the tokens that route alike.  The bf16
+# outputs of those may differ by the rounding of the expert products'
+# batches (one bf16 unit is 2^-8 of max |y|), a wrong exchange by the
+# outputs themselves.  At the published and the dropping factor the outputs
+# equal a one-process replay of the same dispatch and combine bitwise.  The
+# router's gradient is a float32 sum over every token reaching 760, which
+# the one-device moe_ffn itself misses a float64 truth by 1.30e-3
+# (tools/moe_grad_truth.py) and the EP's misses moe_ffn's by 1.45e-3: it is
+# held elementwise at atol EP_ROUTER_GRAD_ATOL and rtol EP_GRAD_TOL, the
+# experts' and x's at rtol = atol = EP_GRAD_TOL (the reference test's).
+# The float32 holds take the first EP_F32_S positions of each sequence, so
+# that eight ranks' float32 activations fit beside the one-device layer's
+# on the card
+EP_MESH = (2, 4)
+EP_TOKENS = (8, 2048)
+EP_F32_S = 1024
+EP_SEED = 0
+EP_CF_DROPLESS = 8.0
+EP_CF_DROPS = 1.0
+EP_BF16_REL = 2e-2
+EP_GRAD_TOL = 5e-4
+EP_ROUTER_GRAD_ATOL = 5e-3
+EP_REPS = 3
+EP_TIMEOUT_S = 300
+# phase 11b: mamba2-780m's checkpoint restored onto a (data, model) group
+ELASTIC_ARCH = "mamba2-780m"
+ELASTIC_MESH = (2, 2)
+ELASTIC_TOKENS = (2, 2048)
+ELASTIC_TIMEOUT_S = 300
+# phase 12: each example's subprocess
+EXAMPLE_TIMEOUT_S = 300
 # the multi-device path (phase 4j): one machine a gloo rank, every rank on
 # the one card, the launcher's limit on the ranks' run
 MESH_TIMEOUT_S = 480
@@ -3324,6 +3407,568 @@ def perf_cells(lines: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11a: expert-parallel MoE over a (data, model) group of gloo ranks
+# ---------------------------------------------------------------------------
+
+def ep_rel(got, want) -> float:
+    """max |got - want| over max |want|, in float32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def ep_readings(got, want, agree) -> dict:
+    """(B, S, d) outputs against ``want``: the relative L2 distance over
+    every token, and max |d| over max |want| on the tokens of the (B, S)
+    mask ``agree`` (those that route alike on both paths)."""
+    d = got.float() - want.float()
+    return {"rel_l2": float(d.norm() / want.float().norm()),
+            "max_rel_routed_alike": float(d[agree].abs().max()
+                                          / want.float().abs().max())}
+
+
+def ep_routing_agrees(cfg, p, x):
+    """(B, S) bool: the tokens of x (B, S, d) whose top-K experts on their
+    ``EP_MESH`` shard, routed as ``moe_ffn_ep`` routes them, equal the
+    one-device ``moe_ffn``'s."""
+    from repro_torch.models import layers
+    B, S, d = x.shape
+    dp, tp = EP_MESH
+    b, s, K = B // dp, S // tp, cfg.experts_per_token
+    G = layers.moe_groups(cfg, B * S)
+    _, ids = layers.moe_route(cfg, p, x.reshape(G, B * S // G, d))
+    ids = ids.reshape(B, S, K)
+    agree = torch.empty((B, S), dtype=torch.bool, device=x.device)
+    for i in range(dp):
+        for j in range(tp):
+            rows = (slice(i * b, (i + 1) * b), slice(j * s, (j + 1) * s))
+            logits = torch.einsum("nd,de->ne",
+                                  x[rows].reshape(b * s, d).float(),
+                                  p["router"])
+            _, mine = torch.topk(logits, K, dim=-1, sorted=True)
+            agree[rows] = (mine.reshape(b, s, K) == ids[rows]).all(-1)
+    return agree
+
+
+def ep_replay(cfg, p, x, cf: float):
+    """A one-process replay of ``moe_ffn_ep`` over the ``EP_MESH`` shards
+    of x (B, S, d): each shard's ``_dispatch_local``, the exchange as
+    indexing, each destination's experts on the same (tp, E/tp, cap, d)
+    buffers, each shard's ``_combine_local``.  Returns the global outputs
+    and the entries each shard dropped, in rank order."""
+    from repro_torch.models.layers import gelu, silu_stepwise
+    from repro_torch.models.moe_shardmap import (_combine_local,
+                                                 _dispatch_local, ep_capacity)
+    dp, tp = EP_MESH
+    B, S, d = x.shape
+    b, s, e = B // dp, S // tp, cfg.num_experts // tp
+    cap = ep_capacity(cfg, b * s, cf)
+    act = silu_stepwise if cfg.mlp_type != "gelu" else gelu
+    out = torch.empty_like(x)
+    drops = []
+    for i in range(dp):
+        sends, books = [], []
+        for j in range(tp):
+            xs = x[i * b:(i + 1) * b, j * s:(j + 1) * s].reshape(b * s, d)
+            send, book = _dispatch_local(cfg, p["router"], xs, tp, cap)
+            sends.append(send)
+            books.append(book)
+            drops.append(int((~book[3]).sum()))
+        outs = []
+        for m in range(tp):
+            recv = torch.stack([sends[j][m] for j in range(tp)])
+            w = {k: p[k][m * e:(m + 1) * e] for k in ("w_gate", "w_up",
+                                                      "w_down")}
+            hidden = act(torch.einsum("secd,edf->secf", recv,
+                                      w["w_gate"])).mul_(
+                torch.einsum("secd,edf->secf", recv, w["w_up"]))
+            outs.append(torch.einsum("secf,efd->secd", hidden, w["w_down"]))
+        for j in range(tp):
+            back = torch.stack([outs[m][j] for m in range(tp)])
+            out[i * b:(i + 1) * b, j * s:(j + 1) * s] = _combine_local(
+                b * s, d, back, books[j]).reshape(b, s, d)
+    return out, drops
+
+
+def ep_rank(cfg, p, x, refs: dict, reps: int) -> dict:
+    """One rank of phase 11a (a ``spawn_ranks`` rank function; ``p``, ``x``
+    and ``refs`` are the launcher's card tensors, shared by CUDA IPC).
+    Returns its readings: (a) the gathered bf16 outputs at a dropless
+    capacity against ``moe_ffn``'s, and with the experts of the next
+    ``model`` rank in place of its own; (b) its outputs at the published and
+    a dropping capacity factor against the one-process replay, and the
+    entries it dropped; (c) the float32 outputs and gradients of
+    ``sum(y²)`` against ``moe_ffn``'s; then the bf16 forward and forward +
+    backward ms at the published factor, the exchange's ``all_to_all`` ms
+    and bytes and the all-reduce of the experts' gradients, each alone,
+    and its peak memory."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe_shardmap as EP
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(EP_MESH, ("data", "model")).device_mesh("cuda")
+    tp, j = EP_MESH[1], mesh.get_local_rank("model")
+    e = cfg.num_experts // tp
+    n, d = x.shape[0] * x.shape[1] // (EP_MESH[0] * tp), x.shape[-1]
+    local = EP.expert_shard(p, mesh)
+    xs = EP.token_shard(x, mesh)
+    out = {"rank": dist.get_rank(), "data": mesh.get_local_rank("data"),
+           "model": j}
+    with torch.no_grad():
+        y = EP.moe_ffn_ep(cfg, local, xs, mesh, EP_CF_DROPLESS)
+        out["bf16_vs_moe_ffn"] = ep_readings(EP.gather_tokens(y, mesh),
+                                             refs["dropless"], refs["agree"])
+        k = (j + 1) % tp
+        other = dict(local, **{w: p[w][k * e:(k + 1) * e]
+                               for w in ("w_gate", "w_up", "w_down")})
+        y = EP.moe_ffn_ep(cfg, other, xs, mesh, EP_CF_DROPLESS)
+        out["bf16_experts_exchanged"] = ep_readings(
+            EP.gather_tokens(y, mesh), refs["dropless"], refs["agree"])
+        for name, cf in (("published", cfg.capacity_factor),
+                         ("drops", EP_CF_DROPS)):
+            y = EP.gather_tokens(EP.moe_ffn_ep(cfg, local, xs, mesh, cf),
+                                 mesh)
+            out[f"{name}_vs_replay"] = ep_rel(y, refs[name])
+            out[f"{name}_bitwise"] = bool(torch.equal(y, refs[name]))
+            _, book = EP._dispatch_local(cfg, local["router"],
+                                         xs.reshape(n, d), tp,
+                                         EP.ep_capacity(cfg, n, cf))
+            out[f"{name}_dropped"] = int((~book[3]).sum())
+        del y, other
+    p32 = {w: v.detach().requires_grad_()
+           for w, v in EP.expert_shard(refs["p32"], mesh).items()}
+    x32 = EP.token_shard(refs["x32"], mesh).detach().requires_grad_()
+    y = EP.moe_ffn_ep(cfg, p32, x32, mesh, EP_CF_DROPLESS)
+    out["f32_vs_moe_ffn"] = ep_readings(EP.gather_tokens(y.detach(), mesh),
+                                        refs["y32"], refs["agree32"])
+    (y ** 2).sum().backward()
+    del y
+    pairs = {"router": (p32["router"].grad, refs["g"]["router"]),
+             "x": (x32.grad, EP.token_shard(refs["gx"], mesh))}
+    for w in ("w_gate", "w_up", "w_down"):
+        pairs[w] = (p32[w].grad, refs["g"][w][j * e:(j + 1) * e])
+    out["grad_max_abs_err"] = {w: float((a - b).abs().max())
+                               for w, (a, b) in pairs.items()}
+    out["grad_max_abs"] = {w: float(b.abs().max())
+                           for w, (a, b) in pairs.items()}
+    out["grad_within"] = {w: bool(torch.allclose(a, b, rtol=EP_GRAD_TOL,
+                                                 atol=EP_GRAD_TOL))
+                          for w, (a, b) in pairs.items()}
+    out["grad_within"]["router"] = bool(torch.allclose(
+        *pairs["router"], rtol=EP_GRAD_TOL, atol=EP_ROUTER_GRAD_ATOL))
+    del p32, x32, pairs
+    torch.cuda.empty_cache()
+    lb = {w: v.detach().requires_grad_() for w, v in local.items()}
+    xb = xs.detach().requires_grad_()
+
+    def forward_only():
+        with torch.no_grad():
+            EP.moe_ffn_ep(cfg, local, xs, mesh)
+
+    def forward_backward():
+        for t in (*lb.values(), xb):
+            t.grad = None
+        (EP.moe_ffn_ep(cfg, lb, xb, mesh).float() ** 2).sum().backward()
+
+    out["forward_ms"] = median_ms(forward_only, reps)
+    out["forward_backward_ms"] = median_ms(forward_backward, reps)
+    buf = torch.empty((tp, e, EP.ep_capacity(cfg, n), d), dtype=x.dtype,
+                      device=x.device)
+    model = mesh.get_group("model")
+    with torch.no_grad():
+        out["all_to_all_ms"] = median_ms(lambda: EP._exchange(buf, model),
+                                         reps)
+    out["all_to_all_bytes"] = buf.numel() * buf.element_size()
+    # the backward's sums of the experts' gradients over data, alone
+    grads = [torch.zeros_like(local[w]) for w in ("w_gate", "w_up",
+                                                   "w_down")]
+    data = mesh.get_group("data")
+    out["expert_grad_all_reduce_ms"] = median_ms(
+        lambda: [dist.all_reduce(g, group=data) for g in grads], reps)
+    out["expert_grad_bytes"] = sum(g.numel() * g.element_size()
+                                   for g in grads)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def ep_phase(lines: list) -> dict:
+    """Phase 11a: one MoE layer of phi3.5-moe-42b-a6.6b at its published
+    width (E 16, K 2, d 4096, d_ff 6400, bf16 experts) split over a
+    ``(data, model) = EP_MESH`` group of gloo ranks sharing the card, on
+    ``EP_TOKENS`` bf16 tokens drawn from the seed.  Holds, on every rank:
+    (a) at capacity factor E / K (dropless on both paths) the gathered
+    ``moe_ffn_ep`` outputs within ``EP_BF16_REL`` of the one-device
+    ``moe_ffn``'s in relative L2, and on the tokens that route alike within
+    ``EP_BF16_REL`` of max |y|, a run with each rank holding the next model
+    rank's experts beyond it; in float32 (on the first ``EP_F32_S``
+    positions of each sequence) within the reference test's 1e-5 of max
+    |y| on the tokens that route alike; (b) at the published factor and
+    at ``EP_CF_DROPS`` (which drops) the outputs bitwise those of a
+    one-process replay of the port's ``_dispatch_local``/``_combine_local``
+    over the same shards, each rank dropping the replay's entries; (c) the
+    float32 gradients of ``sum(y²)`` (router summed over every rank,
+    experts over ``data``) within ``EP_GRAD_TOL`` of ``moe_ffn``'s (the
+    router's within atol ``EP_ROUTER_GRAD_ATOL``).  Prints the tokens that
+    route apart, each rank's bf16 forward and forward + backward ms, the
+    exchange's ms and bytes, the experts' gradient all-reduce ms, and peak
+    GB, beside the one-device ``moe_ffn`` ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.ranks import spawn_ranks
+    t0 = time.perf_counter()
+    cfg = get_config(PHI)
+    cfg8 = dataclasses.replace(cfg, capacity_factor=EP_CF_DROPLESS)
+    gen = torch.Generator(device="cuda").manual_seed(EP_SEED)
+    p = layers.init_moe(cfg, gen)
+    x = torch.randn((*EP_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda", dtype=p["w_gate"].dtype)
+    refs, replay_drops = {}, {}
+    with torch.no_grad():
+        refs["dropless"] = layers.moe_ffn(cfg8, p, x)
+        refs["agree"] = ep_routing_agrees(cfg, p, x)
+        refs["agree32"] = ep_routing_agrees(cfg, p, x[:, :EP_F32_S].float())
+        moe_ffn_ms = median_ms(lambda: layers.moe_ffn(cfg, p, x), EP_REPS)
+        for name, cf in (("published", cfg.capacity_factor),
+                         ("drops", EP_CF_DROPS)):
+            refs[name], replay_drops[name] = ep_replay(cfg, p, x, cf)
+    p32 = {k: v.float().requires_grad_() for k, v in p.items()}
+    x32 = x[:, :EP_F32_S].float().requires_grad_()
+    y32 = layers.moe_ffn(cfg8, p32, x32)
+    (y32 ** 2).sum().backward()
+    refs.update(y32=y32.detach(), x32=x32.detach(),
+                p32={k: v.detach() for k, v in p32.items()},
+                g={k: v.grad for k, v in p32.items()}, gx=x32.grad)
+    del y32, p32, x32
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ep_rank, EP_MESH[0] * EP_MESH[1],
+                        args=(cfg, p, x, refs, EP_REPS), device="cuda",
+                        timeout=EP_TIMEOUT_S, name="phase 11a")
+    ranks_s = time.perf_counter() - t0
+    routed_apart = {"bfloat16": int((~refs["agree"]).sum()),
+                    "float32": int((~refs["agree32"]).sum())}
+    del refs, p, x
+    torch.cuda.empty_cache()
+    for r in ranks:
+        what = f"phase 11a rank {r['rank']}"
+        sound, wrong = r["bf16_vs_moe_ffn"], r["bf16_experts_exchanged"]
+        check(max(sound.values()) <= EP_BF16_REL, f"{what}: bf16 {sound} "
+              f"from moe_ffn")
+        check(wrong["rel_l2"] > EP_BF16_REL, f"{what}: exchanged experts "
+              f"read {wrong}, within the bf16 limit")
+        check(r["f32_vs_moe_ffn"]["max_rel_routed_alike"] < 1e-5,
+              f"{what}: float32 {r['f32_vs_moe_ffn']} from moe_ffn")
+        for name in ("published", "drops"):
+            check(r[f"{name}_bitwise"], f"{what}: {name} differs from the "
+                  f"replay by {r[f'{name}_vs_replay']} of max |y|")
+            check(r[f"{name}_dropped"] == replay_drops[name][r["rank"]],
+                  f"{what}: {name} dropped {r[f'{name}_dropped']}, the "
+                  f"replay {replay_drops[name][r['rank']]}")
+        check(all(r["grad_within"].values()), f"{what}: float32 gradients "
+              f"beyond {EP_GRAD_TOL} (router atol {EP_ROUTER_GRAD_ATOL}): "
+              f"{r['grad_max_abs_err']} (largest {r['grad_max_abs']})")
+    check(sum(replay_drops["drops"]) > 0, f"phase 11a: capacity factor "
+          f"{EP_CF_DROPS} dropped nothing")
+    fwd = statistics.median(r["forward_ms"] for r in ranks)
+    a2a = statistics.median(r["all_to_all_ms"] for r in ranks)
+    reduce_ms = statistics.median(r["expert_grad_all_reduce_ms"]
+                                  for r in ranks)
+    out = {"arch": PHI, "mesh": dict(zip(("data", "model"), EP_MESH)),
+           "ranks": len(ranks), "backend": "gloo",
+           "devices": "cuda:0, shared", "tokens": list(EP_TOKENS),
+           "float32_tokens": [EP_TOKENS[0], EP_F32_S],
+           "expert_gb": cfg.num_experts * 3 * cfg.d_model * cfg.d_ff * 2
+           / 1e9,
+           "capacity_factors": {"dropless": EP_CF_DROPLESS,
+                                "published": cfg.capacity_factor,
+                                "drops": EP_CF_DROPS},
+           "replay_dropped": replay_drops, "routed_apart": routed_apart,
+           "bf16_rel_limit": EP_BF16_REL, "grad_tol": EP_GRAD_TOL,
+           "router_grad_atol": EP_ROUTER_GRAD_ATOL,
+           "moe_ffn_ms": moe_ffn_ms, "forward_ms_median": fwd,
+           "forward_backward_ms_median": statistics.median(
+               r["forward_backward_ms"] for r in ranks),
+           "all_to_all_ms_median": a2a,
+           "expert_grad_all_reduce_ms_median": reduce_ms,
+           # the collectives of one call, each timed alone
+           "collectives_alone_ms": {"forward": 2 * a2a,
+                                    "forward_backward": 4 * a2a
+                                    + reduce_ms},
+           "per_rank": ranks, "setup_s": setup_s, "ranks_s": ranks_s}
+    lines.append({"expert_parallel": out})
+    log(f"phase 11a: EP over {len(ranks)} ranks in {ranks_s:.1f}s (setup "
+        f"{setup_s:.1f}s): bf16 vs moe_ffn {ranks[0]['bf16_vs_moe_ffn']} "
+        f"(exchanged experts {ranks[0]['bf16_experts_exchanged']}), routed "
+        f"apart {routed_apart}, float32 {ranks[0]['f32_vs_moe_ffn']}, "
+        f"forward {fwd:.1f} "
+        f"ms, forward+backward {out['forward_backward_ms_median']:.1f} ms, "
+        f"all_to_all {a2a:.1f} ms, experts' gradient all_reduce "
+        f"{reduce_ms:.1f} ms, moe_ffn {moe_ffn_ms:.1f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: elastic restore onto a (data, model) group of gloo ranks
+# ---------------------------------------------------------------------------
+
+def elastic_rank(cfg, directory: str, one: dict, tokens, want) -> dict:
+    """One rank of phase 11b: restore the checkpoint onto the
+    ``ELASTIC_MESH`` of the card; its restore seconds and resident bytes,
+    whether every gathered leaf equals the one-device restore (``one``,
+    shared by CUDA IPC) bitwise after ``gather_leaf``, and on rank 0 the
+    forward on the gathered
+    parameters against the one-device forward ``want`` and its ``ssd``
+    launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import forward, meta_params
+    from repro_torch.sharding import param_shardings
+    from repro_torch.train import CheckpointManager, gather_leaf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(ELASTIC_MESH, ("data", "model")).device_mesh("cuda")
+    rank = dist.get_rank()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got, step, _ = CheckpointManager(directory).restore(
+        {"params": meta_params(cfg)},
+        shardings={"params": param_shardings(cfg, mesh)})
+    torch.cuda.synchronize()
+    out = {"rank": rank, "step": step,
+           "restore_s": time.perf_counter() - t0,
+           "resident_bytes": torch.cuda.memory_allocated() - base,
+           "split_leaves": sum(tuple(t.to_local().shape) != tuple(t.shape)
+                               for t in got["params"].values())}
+    full = {}
+    equal = True
+    for name, t in got["params"].items():
+        g = gather_leaf(t)
+        equal &= bool(torch.equal(g, one[name]))
+        if rank == 0:
+            full[name] = g
+    out["gathered_bitwise"] = equal
+    if rank == 0:
+        params = meta_params(cfg).to_empty(device="cuda")
+        with torch.no_grad():
+            for name, p in params.named_parameters():
+                p.copy_(full[name])
+        del full
+        _, _, ssd = reset_launches()
+        with torch.no_grad():
+            logits = forward(cfg, params, tokens)
+        out["forward_bitwise"] = bool(torch.equal(logits, want))
+        out["forward_ssd_launches"] = ssd.launches
+    return out
+
+
+def elastic_phase(lines: list) -> dict:
+    """Phase 11b: mamba2-780m's published-config parameters (the seed's,
+    bf16) saved under ``build/`` and restored onto a ``(data, model) =
+    ELASTIC_MESH`` group of gloo ranks sharing the card with
+    ``shardings=``.  Holds: every leaf gathered (``gather_leaf``) bitwise
+    the one-device restore's; a ``forward`` on the gathered parameters bitwise
+    the one-device ``forward`` on the same tokens, launching ``ssd`` once a
+    layer.  Prints each rank's resident bytes against the model's and the
+    restore seconds."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.ranks import spawn_ranks
+    from repro_torch.train import CheckpointManager
+    cfg = get_config(ELASTIC_ARCH)
+    directory = ROOT / "build" / "chip_smoke_elastic"
+    shutil.rmtree(directory, ignore_errors=True)
+    mgr = CheckpointManager(str(directory), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(1, {"params": init_params(cfg, seed=0, device="cuda")})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one, _, _ = mgr.restore({"params": init_params(cfg, seed=1,
+                                                   device="cuda")})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    one = one["params"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, ELASTIC_TOKENS, generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        want = forward(cfg, one, tokens)
+    leaves = {n: p.detach() for n, p in one.named_parameters()}
+    model_bytes = sum(p.numel() * p.element_size() for p in leaves.values())
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(elastic_rank, math.prod(ELASTIC_MESH),
+                            args=(cfg, str(directory), leaves, tokens, want),
+                            device="cuda", timeout=ELASTIC_TIMEOUT_S,
+                            name="phase 11b")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+    del one, leaves, want
+    torch.cuda.empty_cache()
+    for r in ranks:
+        check(r["gathered_bitwise"] and r["step"] == 1, f"phase 11b rank "
+              f"{r['rank']}: a gathered leaf differs from the one-device "
+              f"restore")
+        check(0 < r["resident_bytes"] < model_bytes, f"phase 11b rank "
+              f"{r['rank']}: {r['resident_bytes']} bytes resident of the "
+              f"model's {model_bytes}")
+    check(ranks[0]["forward_bitwise"], "phase 11b: the forward on the "
+          "gathered parameters differs from the one-device forward")
+    check(ranks[0]["forward_ssd_launches"] == cfg.num_layers,
+          f"phase 11b: the forward launched ssd "
+          f"{ranks[0]['forward_ssd_launches']} times, not "
+          f"{cfg.num_layers}")
+    out = {"arch": ELASTIC_ARCH, "mesh": dict(zip(("data", "model"),
+                                                  ELASTIC_MESH)),
+           "ranks": len(ranks), "backend": "gloo",
+           "devices": "cuda:0, shared", "model_bytes": model_bytes,
+           "save_s": save_s, "one_device_restore_s": restore_s,
+           "tokens": list(ELASTIC_TOKENS), "per_rank": ranks,
+           "ranks_s": ranks_s}
+    lines.append({"elastic_restore": out})
+    log(f"phase 11b: {ELASTIC_ARCH} restored onto {len(ranks)} ranks, "
+        f"resident {[round(r['resident_bytes'] / 1e9, 3) for r in ranks]} "
+        f"GB of {model_bytes / 1e9:.3f}, restore "
+        f"{[round(r['restore_s'], 2) for r in ranks]} s (one device "
+        f"{restore_s:.2f} s), forward bitwise "
+        f"{ranks[0]['forward_bitwise']}, ssd "
+        f"{ranks[0]['forward_ssd_launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the examples on the card
+# ---------------------------------------------------------------------------
+
+#: run an example with the ``bsr_spmv`` wrapper's launches printed at exit
+COUNT_LAUNCHES = r"""
+import atexit, runpy, sys
+from repro_torch.kernels.bsr_spmv import bsr_spmv
+atexit.register(lambda: print("bsr_spmv launches", bsr_spmv.launches,
+                              flush=True))
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def example_partitions() -> dict:
+    """The TC and RF lines ``torch_quickstart.py`` and
+    ``torch_partition_and_pagerank.py`` print, computed here."""
+    from repro_torch.core import evaluate, scaled_paper_cluster, windgp
+    from repro_torch.core.partitioners import get as partitioner
+    from repro_torch.data import rmat
+    out = {}
+    g = rmat(12, seed=7)
+    cl = scaled_paper_cluster(3, 6, g.num_edges)
+    res = windgp(g, cl, alpha=0.1, beta=0.1, t0=20, theta=0.02)
+    s = evaluate(g, partitioner("ne")(g, cl), cl)
+    out["quickstart"] = [f"WindGP : TC={res.stats.tc:.4e}  "
+                         f"RF={res.stats.rf:.3f}",
+                         f"NE     : TC={s.tc:.4e}  RF={s.rf:.3f}"]
+    g = rmat(12, seed=3)
+    cl = scaled_paper_cluster(3, 6, g.num_edges)
+    tcs = []
+    for method in ("hash", "ne", "windgp"):
+        assign = (windgp(g, cl, alpha=0.1, beta=0.1, t0=20,
+                         theta=0.02).assign if method == "windgp"
+                  else partitioner(method)(g, cl))
+        tcs.append(f"{method:7s} TC={evaluate(g, assign, cl).tc:.3e}")
+    out["pagerank"] = tcs
+    return out
+
+
+def examples_phase(lines: list) -> int:
+    """Phase 12: each ``examples/torch_*.py`` once on the card, all at once
+    as subprocesses, at its default size (``torch_partition_edgelist.py``
+    on an ``rmat(12, seed=3)`` edge list written under ``build/``, with
+    ``--pagerank --backend pallas``).  Holds: every exit code 0; the TC
+    and RF lines of the quickstart and the partition-and-PageRank example
+    equal to the port's ``core`` run here on the same graphs and seeds;
+    that example's ``maxerr`` within PageRank's 1e-5; the edge-list
+    example launching ``bsr_spmv`` once a PageRank superstep.  Returns
+    those launches."""
+    import os
+    import re
+    import shutil
+    from repro_torch.data import rmat, write_edge_list
+    build = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(build, ignore_errors=True)
+    build.mkdir(parents=True)
+    edges = build / "edges.txt"
+    write_edge_list(rmat(12, seed=3), str(edges))
+    ex = lambda name: str(ROOT / "examples" / name)
+    py = sys.executable
+    cmds = {
+        "torch_quickstart": [py, ex("torch_quickstart.py")],
+        "torch_partition_and_pagerank": [
+            py, ex("torch_partition_and_pagerank.py")],
+        "torch_hetero_moe_placement": [py,
+                                       ex("torch_hetero_moe_placement.py")],
+        "torch_train_lm": [py, ex("torch_train_lm.py")],
+        "torch_partition_edgelist": [
+            py, "-c", COUNT_LAUNCHES, ex("torch_partition_edgelist.py"),
+            str(edges), "--pagerank", "--backend", "pallas", "--out-dir",
+            str(build / "parts")]}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "TMPDIR": str(build)}
+    t0 = time.perf_counter()
+
+    def run(argv):
+        proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                              timeout=EXAMPLE_TIMEOUT_S)
+        return proc, time.perf_counter() - t0
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+            futures = {k: pool.submit(run, v) for k, v in cmds.items()}
+            want = example_partitions()
+            done = {k: f.result() for k, f in futures.items()}
+    finally:
+        shutil.rmtree(build, ignore_errors=True)
+    walls = {k: s for k, (_, s) in done.items()}
+    text = {k: proc.stdout for k, (proc, _) in done.items()}
+    for k, (proc, _) in done.items():
+        check(proc.returncode == 0, f"phase 12: {k} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+    printed = re.findall(r"^(WindGP : TC=\S+  RF=\S+|NE     : TC=\S+  "
+                         r"RF=\S+)", text["torch_quickstart"], re.M)
+    check(printed == want["quickstart"], f"phase 12: torch_quickstart "
+          f"printed {printed}, the port's core {want['quickstart']}")
+    pr = text["torch_partition_and_pagerank"]
+    printed = re.findall(r"^(\w+ +TC=\S+)", pr, re.M)
+    check(printed == want["pagerank"], f"phase 12: "
+          f"torch_partition_and_pagerank printed {printed}, the port's core "
+          f"{want['pagerank']}")
+    errs = [float(m) for m in re.findall(r"maxerr=(\S+)", pr)]
+    check(len(errs) == 3 and max(errs) <= 1e-5,
+          f"phase 12: PageRank maxerr {errs} beyond 1e-5")
+    el = text["torch_partition_edgelist"]
+    launches = [int(m) for m in re.findall(r"^bsr_spmv launches (\d+)$", el,
+                                           re.M)]
+    steps = [int(m) for m in re.findall(r"^pagerank\[pallas/stepwise/"
+                                        r"float32\]: (\d+)/", el, re.M)]
+    check(len(launches) == 1 and len(steps) == 1 and steps[0] > 0
+          and launches[0] == steps[0], f"phase 12: torch_partition_edgelist "
+          f"launched bsr_spmv {launches} times for {steps} supersteps")
+    check("checkpoints in " in text["torch_train_lm"]
+          and re.search(r"^step +60  loss ", text["torch_train_lm"], re.M),
+          "phase 12: torch_train_lm did not train 60 steps")
+    out = {"walls_s": walls, "maxerr": errs,
+           "tc_rf_equal_to_core": want,
+           "bsr_spmv_launches_partition_edgelist": launches[:1],
+           "pagerank_supersteps": steps[:1],
+           "train_lm_last_step": [l for l in text["torch_train_lm"]
+                                  .splitlines() if l.startswith("step")][-1:]}
+    lines.append({"examples": out})
+    log(f"phase 12: examples {({k: round(v, 1) for k, v in walls.items()})}"
+        f" s, maxerr {errs}, bsr_spmv {launches} launches")
+    return launches[0] if launches else 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
@@ -3515,6 +4160,15 @@ def main() -> int:
     perf = perf_cells(lines)
     log(f"phase 10 in {time.perf_counter() - t0:.1f}s")
     perf_launches = {k: r["launches"] for k, r in perf.items()}
+    torch.cuda.empty_cache()
+
+    # -- phases 11a-11b: expert parallelism and elastic restore ------------
+    ep_phase(lines)
+    elastic = elastic_phase(lines)
+
+    # -- phase 12: the examples --------------------------------------------
+    spmv_entry["launches_examples"] = {
+        "torch_partition_edgelist": examples_phase(lines)}
 
     for line in lines:
         print(json.dumps(line))
@@ -3563,6 +4217,8 @@ def main() -> int:
                                      r["forward_check_ssd_launches"]
                                      for r in (mamba, jamba)},
         "launches_training": mamba_train["launches"]["ssd"],
+        "launches_elastic_forward":
+            elastic["per_rank"][0]["forward_ssd_launches"],
         "launches_perf_cells": {k: v["ssd"]
                                 for k, v in perf_launches.items()},
         "recorded": ssd_t["recorded"], "reps": ssd_t["reps"],

@@ -15,9 +15,9 @@ of a p-rank process group runs machine r:
 * The replica ``exchange`` all-reduces its ``(r_pad+1,)`` buffer (SUM, MIN
   or MAX, in the buffer's dtype); :func:`gather_machines` all-gathers the
   ranks' ``(1, ...)`` states into ``(p, ...)`` on every rank.
-* :func:`spawn_machines` starts p ranks on one host (``spawn``, a
-  ``file://`` rendezvous in a temporary directory) and hands them the graph
-  and the edge assignment as an ``.npz``, so no rank partitions again.
+* :func:`spawn_machines` starts p ranks on one host
+  (:func:`repro_torch.ranks.spawn_ranks`) and hands them the graph and the
+  edge assignment as an ``.npz``, so no rank partitions again.
 
 Gloo takes CPU and CUDA tensors alike, so p ranks can share one GPU (or
 the CPU); each rank holds only its machine's tensors there.
@@ -26,10 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import pickle
 import tempfile
-import time
-import traceback
 from typing import Callable
 
 import numpy as np
@@ -38,6 +35,7 @@ import torch.distributed as dist
 
 from ..core.graph import Graph
 from ..device import resolve_device
+from ..ranks import spawn_ranks
 from .partition_runtime import PartitionRuntime
 
 #: the per-machine fields of a PartitionRuntime (leading machine axis)
@@ -129,54 +127,17 @@ def run_apps(rt: PartitionRuntime, mesh: Machines, calls) -> list:
     return [fns[app](rt, mesh=mesh, **kw) for app, kw in calls]
 
 
-def _rank_main(rank: int, p: int, workdir: str, fn: Callable, args: tuple,
-               backend: str, device: str) -> None:
-    """One rank of :func:`spawn_machines`: join the group, pack the
-    runtime from the hand-off, run ``fn`` and write its result, or the
-    time and traceback of its failure."""
-    torch.set_num_threads(1)
+def _machine_main(hand_off: str, fn: Callable, args: tuple,
+                  device: str):
+    """One rank of :func:`spawn_machines`: pack the runtime from the
+    hand-off and run ``fn`` on this rank's machine."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is not None:
-        torch.cuda.set_device(dev)
-    if backend == "gloo":
-        # every rank lives on this host: loopback needs no name lookup
-        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    dist.init_process_group(backend, init_method=f"file://{workdir}/rdzv",
-                            world_size=p, rank=rank)
-    try:
-        with np.load(os.path.join(workdir, "machines.npz")) as z:
-            g = Graph(indptr=z["indptr"], indices=z["indices"],
-                      edge_ids=z["edge_ids"], edges=z["edges"])
-            rt = PartitionRuntime.build(g, z["assign"], p, device=dev)
-        out = fn(rt, machine_group(None, dev), *args)
-        with open(os.path.join(workdir, f"result{rank}.pkl"), "wb") as f:
-            pickle.dump(out, f)
-    except BaseException:
-        with open(os.path.join(workdir, f"error{rank}.txt"), "w") as f:
-            f.write(f"{time.time()!r}\n{traceback.format_exc()}")
-        raise
-    finally:
-        dist.destroy_process_group()
-
-
-def _first_failure(workdir: str, p: int, e: Exception) -> str:
-    """What made a spawn fail: the traceback of the rank that failed first
-    (a peer's collective then fails too), else the exit of the rank the
-    launcher saw."""
-    failed = []
-    for r in range(p):
-        path = os.path.join(workdir, f"error{r}.txt")
-        if os.path.exists(path):
-            with open(path) as f:
-                when, text = f.read().split("\n", 1)
-            failed.append((float(when), r, text))
-    if not failed:
-        return f"spawn_machines: rank {e.error_index} of {p} failed: {e}"
-    failed.sort()
-    _, first, text = failed[0]
-    then = [r for _, r, _ in failed[1:]]
-    return (f"spawn_machines: rank {first} of {p} failed"
-            + (f" (then ranks {then})" if then else "") + f":\n{text}")
+    with np.load(hand_off) as z:
+        g = Graph(indptr=z["indptr"], indices=z["indices"],
+                  edge_ids=z["edge_ids"], edges=z["edges"])
+        rt = PartitionRuntime.build(g, z["assign"], dist.get_world_size(),
+                                    device=dev)
+    return fn(rt, machine_group(None, dev), *args)
 
 
 def spawn_machines(fn: Callable, p: int, *, graph: Graph, assign, args=(),
@@ -185,48 +146,22 @@ def spawn_machines(fn: Callable, p: int, *, graph: Graph, assign, args=(),
     """Run ``fn(rt, machines, *args)`` on p ranks of this host, rank r
     machine r; returns the p results in rank order.
 
-    Each rank is a fresh process (the ``spawn`` start method: a process
-    forked under a CUDA context cannot use CUDA) that joins a ``backend``
-    group through a ``file://`` rendezvous, loads ``graph`` and ``assign``
-    from an ``.npz`` written here, packs the full
-    :class:`PartitionRuntime` on the host with its tensors on ``device``,
-    and calls ``fn``, which must be picklable (a module-level function) and
-    return a picklable result.  ``fn`` passes the runtime and ``machines``
-    to the apps (``mesh=machines``), which cut the runtime to the rank's
-    machine.  Every rank runs on ``device``; one that finds no CUDA there
-    raises.  A rank that raises makes the launcher stop the others and
-    raise its traceback; ranks still running after ``timeout`` seconds are
-    killed and raise ``TimeoutError``.
+    The ranks start through :func:`repro_torch.ranks.spawn_ranks` (its
+    failure and timeout rules, messages headed ``spawn_machines``).  Each
+    loads ``graph`` and ``assign`` from an ``.npz`` written here, packs the
+    full :class:`PartitionRuntime` on the host with its tensors on
+    ``device``, and calls ``fn``, which must be picklable (a module-level
+    function) and return a picklable result.  ``fn`` passes the runtime and
+    ``machines`` to the apps (``mesh=machines``), which cut the runtime to
+    the rank's machine.
     """
-    import torch.multiprocessing as mp
     resolve_device(device)
     with tempfile.TemporaryDirectory(prefix="machines-") as workdir:
-        np.savez(os.path.join(workdir, "machines.npz"),
-                 indptr=graph.indptr, indices=graph.indices,
+        hand_off = os.path.join(workdir, "machines.npz")
+        np.savez(hand_off, indptr=graph.indptr, indices=graph.indices,
                  edge_ids=graph.edge_ids, edges=graph.edges,
                  assign=np.asarray(assign))
-        ctx = mp.start_processes(
-            _rank_main, args=(p, workdir, fn, tuple(args), backend,
-                              str(device)),
-            nprocs=p, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout
-        try:
-            while not ctx.join(timeout=0.2):
-                if time.monotonic() > deadline:
-                    alive = [r for r, proc in enumerate(ctx.processes)
-                             if proc.is_alive()]
-                    raise TimeoutError(f"spawn_machines: ranks {alive} of "
-                                       f"{p} still running after "
-                                       f"{timeout} s")
-        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
-            raise RuntimeError(_first_failure(workdir, p, e)) from None
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                proc.join()
-        out = []
-        for r in range(p):
-            with open(os.path.join(workdir, f"result{r}.pkl"), "rb") as f:
-                out.append(pickle.load(f))
-        return out
+        return spawn_ranks(_machine_main, p,
+                           args=(hand_off, fn, tuple(args), str(device)),
+                           backend=backend, device=device, timeout=timeout,
+                           name="spawn_machines")

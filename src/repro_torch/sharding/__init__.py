@@ -9,11 +9,12 @@
 from . import specs, windgp_placement
 from .specs import (cache_specs, data_axes, input_specs_for,
                     logical_batch_spec, opt_state_specs, param_shapes,
-                    param_specs, split_of)
+                    param_shardings, param_specs, split_of)
 from .windgp_placement import (coactivation_graph, place_experts,
                                placement_cost)
 
 __all__ = ["specs", "windgp_placement", "param_shapes", "param_specs",
+           "param_shardings",
            "opt_state_specs", "input_specs_for", "cache_specs", "data_axes",
            "logical_batch_spec", "split_of", "coactivation_graph",
            "place_experts", "placement_cost"]

@@ -142,6 +142,24 @@ def param_specs(cfg, mesh, *, fsdp: bool = False, shapes=None) -> dict:
     return out
 
 
+def param_shardings(cfg, device_mesh) -> dict:
+    """``{parameter name: (device_mesh, spec)}`` for every parameter of
+    the port's ``Decoder`` (``named_parameters`` names): the rules of
+    :func:`param_specs` on a mesh of ``device_mesh``'s dim names and sizes,
+    a stacked leaf's spec without its ``n_super`` dim.  The ``shardings=``
+    entry of ``CheckpointManager.restore`` for a ``Decoder``."""
+    from ..launch.mesh import make_mesh
+    specs = param_specs(cfg, make_mesh(device_mesh.shape,
+                                       device_mesh.mesh_dim_names))
+    out = {}
+    for name, _ in meta_params(cfg).named_parameters():
+        path, _ = reference_path(cfg, name)
+        spec = specs[path]
+        out[name] = (device_mesh,
+                     spec[1:] if path.startswith("blocks/") else spec)
+    return out
+
+
 def opt_state_specs(pspecs: dict, shapes: dict, mesh) -> dict:
     """ZeRO: each moment gets its parameter's spec plus ``data`` on the
     largest free dim of the (stacked) leaf, its ``n_super`` dim included."""

@@ -4,8 +4,9 @@ same code on the CPU, the reduced LM configs on the card against the
 CPU, and the sampling service, feature store and prefetch pipeline on
 the card against the CPU and the numpy oracle, bitwise, the ``ssd``
 autograd.Function's gradients against autograd through its plain
-version, and a reduced train step on the card against the CPU.  They
-skip where
+version, a reduced train step on the card against the CPU, expert
+parallelism on two gloo ranks sharing the card against the one-device
+MoE layer, and elastic restore onto a CUDA mesh.  They skip where
 ``torch.cuda.is_available()`` is False.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -861,3 +862,89 @@ def test_fused_capture_failure_raises(cuda):
     run = make_fused_runner(superstep, {}, chunk=2)
     with pytest.raises(RuntimeError, match="CUDA graph"):
         run({"x": torch.zeros((3, 4), device=cuda)}, 4)
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE and elastic restore on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def ep_rank(params: dict, x: np.ndarray):
+    """A ``spawn_ranks`` rank on a (data, model) = (1, 2) mesh of the card:
+    the gathered EP output at capacity factor 8 and the router's
+    gradient of ``sum(y²)``."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe_shardmap as EP
+    cfg = get_reduced("phi3.5-moe-42b-a6.6b")
+    mesh = make_mesh((1, 2), ("data", "model")).device_mesh("cuda")
+    full = {k: torch.from_numpy(v).cuda() for k, v in params.items()}
+    p = {k: v.detach().clone().requires_grad_()
+         for k, v in EP.expert_shard(full, mesh).items()}
+    xs = EP.token_shard(torch.from_numpy(x).cuda(), mesh)
+    y = EP.moe_ffn_ep(cfg, p, xs, mesh, 8.0)
+    (y ** 2).sum().backward()
+    return (EP.gather_tokens(y.detach(), mesh).cpu().numpy(),
+            p["router"].grad.cpu().numpy())
+
+
+def test_ep_on_two_cuda_ranks_matches_moe_ffn(cuda):
+    """Two gloo ranks sharing the card, the experts split over ``model``:
+    the output within 1e-5 of max |y| of the one-device ``moe_ffn`` at a
+    dropless capacity, the router's gradient at 5e-4 (the reference
+    test's tolerances)."""
+    from repro_torch.ranks import spawn_ranks
+    cfg = dataclasses.replace(get_reduced("phi3.5-moe-42b-a6.6b"),
+                              capacity_factor=8.0)
+    gen = torch.Generator().manual_seed(0)
+    params = TL.init_moe(cfg, gen)
+    x = np.random.default_rng(1).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)
+    by_rank = spawn_ranks(ep_rank, 2, args=(
+        {k: v.numpy() for k, v in params.items()}, x), device="cuda",
+        timeout=300)
+    p = {k: v.to(cuda).requires_grad_() for k, v in params.items()}
+    want = TL.moe_ffn(cfg, p, torch.from_numpy(x).to(cuda))
+    (want ** 2).sum().backward()
+    want = want.detach().cpu().numpy()
+    for y, g_router in by_rank:
+        assert np.abs(y - want).max() / np.abs(want).max() < 1e-5
+        np.testing.assert_allclose(g_router, p["router"].grad.cpu().numpy(),
+                                   rtol=5e-4, atol=5e-4)
+
+
+def restore_rank(directory: str):
+    """A ``spawn_ranks`` rank: restore glm4-9b's reduced parameters onto a
+    (1, 2) CUDA mesh; each leaf's device type and local shape, and whether
+    its gathered tensor (``gather_leaf``) equals the stored one."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import meta_params
+    from repro_torch.sharding import param_shardings
+    from repro_torch.train import CheckpointManager, gather_leaf
+    cfg = get_reduced("glm4-9b")
+    mesh = make_mesh((1, 2), ("data", "model")).device_mesh("cuda")
+    mgr = CheckpointManager(directory)
+    got, _, _ = mgr.restore({"params": meta_params(cfg)},
+                            shardings={"params": param_shardings(cfg, mesh)})
+    want = init_params(cfg, 0, "cpu")
+    out = {}
+    for name, p in want.named_parameters():
+        t = got["params"][name]
+        out[name] = (t.to_local().device.type, tuple(t.to_local().shape),
+                     bool(torch.equal(gather_leaf(t).cpu(), p)))
+    return out
+
+
+def test_restore_with_shardings_onto_a_cuda_mesh(cuda, tmp_path):
+    from repro_torch.ranks import spawn_ranks
+    from repro_torch.train import CheckpointManager
+    cfg = get_reduced("glm4-9b")
+    params = init_params(cfg, 0, "cpu")
+    CheckpointManager(str(tmp_path)).save(1, {"params": params})
+    by_rank = spawn_ranks(restore_rank, 2, args=(str(tmp_path),),
+                          device="cuda", timeout=300)
+    split = 0
+    for leaves in by_rank:
+        for name, p in params.named_parameters():
+            dev, shape, equal = leaves[name]
+            assert dev == "cuda" and equal, name
+            split += shape != tuple(p.shape)
+    assert split > 0

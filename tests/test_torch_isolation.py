@@ -11,7 +11,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 #: everything that runs on the card's machine, where there is no JAX
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "tools").glob("*.py")) \
+    + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def absolute_imports(path: pathlib.Path):
@@ -47,7 +48,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.train, repro_torch.data.lm_data, "
             "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
             "repro_torch.launch.perf, repro_torch.launch.roofline, "
-            "repro_torch.sharding.specs; "
+            "repro_torch.sharding.specs, repro_torch.models.moe_shardmap, "
+            "repro_torch.ranks; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]; "
             "assert not bad, bad")
