@@ -31,6 +31,11 @@ runs one a device: each rank builds its app on its machine's slice of
 ``rt`` (``distributed.machine_slice``), the exchange all-reduces across
 the ranks, and the final states are all-gathered, so every rank returns
 the same ``(V,)`` result and ``(steps, p)`` actives.
+
+A query records the spans (``repro_torch.obs``) ``bsp.prepare`` (backend
+and static tree, whose bytes count under ``bsp.h2d_bytes``), one
+``bsp.superstep`` a stepwise superstep (``engine.run_bsp``) and
+``bsp.finalize`` (the global result).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import obs
 from .backends import BACKENDS, MESSAGE_DTYPES, get_backend
 from .distributed import gather_machines, local_runtime
 from .engine import run_bsp, run_bsp_fused
@@ -136,9 +142,11 @@ def _options(options: RunOptions | None, app: str, backend, fused, tol,
 
 
 def _static_tree(rt: PartitionRuntime) -> dict:
+    """The runtime's arrays as tensors on its device; their bytes count
+    under ``bsp.h2d_bytes``."""
     dev = rt.device
     as_t = lambda a, dt: torch.as_tensor(a).to(device=dev, dtype=dt)
-    return {
+    tree = {
         "edges": as_t(rt.local_edges, torch.int64),
         "edge_valid": as_t(rt.edge_valid, torch.bool),
         "edge_weight": as_t(rt.edge_weight, torch.float32),
@@ -147,6 +155,9 @@ def _static_tree(rt: PartitionRuntime) -> dict:
         "weighted_degree": as_t(rt.weighted_degree, torch.float32),
         "rep_slot": as_t(rt.rep_slot, torch.int64),
     }
+    obs.count("bsp.h2d_bytes",
+              sum(t.numel() * t.element_size() for t in tree.values()))
+    return tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,12 +180,15 @@ class AppSpec:
 
 def _resolve(rt, backend, semiring: str, weights: str, exchange_mode: str,
              mesh=None, **opts):
-    """Backend + static tree + exchange-fused combine for one app."""
-    r_pad = max(1, rt.num_replicas)
-    eb = get_backend(backend, **opts)
-    extras, combine = eb.prepare_exchanged(rt, semiring, weights,
-                                           exchange_mode, r_pad, mesh=mesh)
-    return eb, {**_static_tree(rt), **extras}, combine
+    """Backend + static tree + exchange-fused combine for one app (the
+    ``bsp.prepare`` span)."""
+    with obs.span("bsp.prepare"):
+        r_pad = max(1, rt.num_replicas)
+        eb = get_backend(backend, **opts)
+        extras, combine = eb.prepare_exchanged(rt, semiring, weights,
+                                               exchange_mode, r_pad,
+                                               mesh=mesh)
+        return eb, {**_static_tree(rt), **extras}, combine
 
 
 def _run(spec: "AppSpec", num_steps: int, opts: RunOptions):
@@ -189,10 +203,11 @@ def _run(spec: "AppSpec", num_steps: int, opts: RunOptions):
 
 def _result(spec: "AppSpec", rt: PartitionRuntime, out: dict):
     """The app's global result from its final state; under a mesh, from
-    every rank's state, gathered."""
-    if spec.mesh is not None:
-        out = gather_machines(out, spec.mesh)
-    return spec.finalize(rt, out)
+    every rank's state, gathered (the ``bsp.finalize`` span)."""
+    with obs.span("bsp.finalize"):
+        if spec.mesh is not None:
+            out = gather_machines(out, spec.mesh)
+        return spec.finalize(rt, out)
 
 
 def build_pagerank(rt: PartitionRuntime, damping: float = 0.85, *,

@@ -33,6 +33,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import obs
+
 
 def _extreme(dtype: torch.dtype, sign: int):
     """Dtype-safe stand-in for ±∞: the most extreme representable value.
@@ -96,7 +98,8 @@ def run_bsp(superstep: Callable, state, static, num_steps: int, *,
             mesh=None):
     """Iterate the superstep; returns (final_state, (steps, p) actives).
 
-    One host sync per superstep, on the ``(p,)`` active counts.  Under
+    One host sync per superstep, on the ``(p,)`` active counts; each
+    superstep, its sync included, is a ``bsp.superstep`` span.  Under
     ``mesh`` the state stays this rank's ``(1, ...)``; each rank syncs on
     its own ``(1,)`` count, and the ranks' counts are gathered once, at
     the end, into every rank's ``(steps, p)``.
@@ -104,8 +107,9 @@ def run_bsp(superstep: Callable, state, static, num_steps: int, *,
     step = make_step(superstep, static)
     actives = []
     for _ in range(num_steps):
-        state, act = step(state)
-        actives.append(act.cpu())
+        with obs.span("bsp.superstep"):
+            state, act = step(state)
+            actives.append(act.cpu())
     if not actives:
         # zero steps still contract to a (0, p) actives array
         p = _num_machines(state) if mesh is None else mesh.size

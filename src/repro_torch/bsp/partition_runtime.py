@@ -27,6 +27,7 @@ import os
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.graph import Graph
 from ..device import resolve_device
 from ..kernels.bsr_spmv import get_semiring
@@ -123,66 +124,85 @@ class LocalBSR:
         here one machine at a time, through a float32 staging tensor of
         one machine's blocks, so a 16-bit layout never sits beside its
         whole float32 counterpart (37 GB at ``graph500:16``).
+
+        Two spans time it: ``layout.host`` (degrees, order, ELL slots,
+        ``cols``/``gather``/``rank`` and each edge's cell) and
+        ``layout.device`` (the fill, the ⊕-scatter and the copies to the
+        device, which end on one synchronize where the device is CUDA).
         """
         sr = get_semiring(semiring)
         dt = message_dtype(dtype)
         p, vmax, bm = rt.p, rt.vmax, int(block_size)
         R = max(1, -(-vmax // bm))
-        per, orders, ranks, stats = [], [], [], []
-        for i in range(p):
-            ev = rt.edge_valid[i]
-            e = rt.local_edges[i][ev].astype(np.int64)
-            deg = np.zeros(vmax, dtype=np.int64)
-            np.add.at(deg, e[:, 0], 1)
-            np.add.at(deg, e[:, 1], 1)
-            order = np.argsort(-deg, kind="stable").astype(np.int32)
-            rank = rank_of(order, vmax)
-            w = edge_operand(rt.edge_weight[i][ev], weights).astype(np.float32)
-            e = rank[e].astype(np.int64)
-            rows = np.concatenate([e[:, 0], e[:, 1]])
-            cols = np.concatenate([e[:, 1], e[:, 0]])
-            w = np.concatenate([w, w])
-            # ELL slots: a row's nonzero blocks in ascending block column
-            key = (rows // bm) * R + cols // bm
-            uniq, inv = np.unique(key, return_inverse=True)
-            urow = uniq // R
-            uslot = np.arange(len(uniq)) - np.searchsorted(urow, urow)
-            k_i = max(1, int(uslot.max(initial=-1)) + 1)
-            nnz = len(np.unique(rows * (R * bm) + cols))
-            per.append((urow, uslot, uniq % R, rows, cols, uslot[inv], w, k_i))
-            orders.append(order)
-            ranks.append(rank)
-            stats.append({
-                "rows": R, "ell_k": k_i, "block_size": bm,
-                "nnz": nnz, "nnz_blocks": len(uniq),
-                "block_fill": len(uniq) / max(1, R * k_i),
-                "entry_fill": nnz / max(1, len(uniq) * bm * bm),
-                "pad_frac": (R * bm - vmax) / max(1, R * bm),
-            })
-        K = max(k_i for *_, k_i in per)
-        cols_np = np.zeros((p, R, K), dtype=np.int32)
         dev = rt.device
-        blocks = torch.empty((p, R, K, bm, bm), dtype=dt, device=dev)
-        stage = None if dt == torch.float32 else torch.empty(
-            (R, K, bm, bm), dtype=torch.float32, device=dev)
-        for i, (urow, uslot, ucol, rows, cols, slot, w, _) in enumerate(per):
-            cols_np[i, urow, uslot] = ucol
-            flat = (((rows // bm) * K + slot) * bm + rows % bm) * bm \
-                + cols % bm
-            cells = blocks[i] if stage is None else stage
-            cells.fill_(sr.absent)
-            sr.scatter_accum(cells.view(-1), torch.from_numpy(flat).to(dev),
-                             torch.from_numpy(w).to(dev))
-            if stage is not None:
-                blocks[i].copy_(stage)          # one rounding to ``dt``
-        del stage
-        gather = np.zeros((p, R * bm), dtype=np.int64)
-        gather[:, :vmax] = np.stack(orders)
-        return cls(cols=torch.from_numpy(cols_np).to(dev), blocks=blocks,
-                   gather=torch.from_numpy(gather).to(dev),
-                   rank=torch.from_numpy(np.stack(ranks).astype(np.int64)
-                                         ).to(dev),
-                   block_size=bm, semiring=sr.name, fill_stats=tuple(stats))
+        with obs.span("layout.host"):
+            per, orders, ranks, stats = [], [], [], []
+            for i in range(p):
+                ev = rt.edge_valid[i]
+                e = rt.local_edges[i][ev].astype(np.int64)
+                deg = np.zeros(vmax, dtype=np.int64)
+                np.add.at(deg, e[:, 0], 1)
+                np.add.at(deg, e[:, 1], 1)
+                order = np.argsort(-deg, kind="stable").astype(np.int32)
+                rank = rank_of(order, vmax)
+                w = edge_operand(rt.edge_weight[i][ev],
+                                 weights).astype(np.float32)
+                e = rank[e].astype(np.int64)
+                rows = np.concatenate([e[:, 0], e[:, 1]])
+                cols = np.concatenate([e[:, 1], e[:, 0]])
+                w = np.concatenate([w, w])
+                # ELL slots: a row's nonzero blocks in ascending block column
+                key = (rows // bm) * R + cols // bm
+                uniq, inv = np.unique(key, return_inverse=True)
+                urow = uniq // R
+                uslot = np.arange(len(uniq)) - np.searchsorted(urow, urow)
+                k_i = max(1, int(uslot.max(initial=-1)) + 1)
+                nnz = len(np.unique(rows * (R * bm) + cols))
+                per.append((urow, uslot, uniq % R, rows, cols, uslot[inv], w,
+                            k_i))
+                orders.append(order)
+                ranks.append(rank)
+                stats.append({
+                    "rows": R, "ell_k": k_i, "block_size": bm,
+                    "nnz": nnz, "nnz_blocks": len(uniq),
+                    "block_fill": len(uniq) / max(1, R * k_i),
+                    "entry_fill": nnz / max(1, len(uniq) * bm * bm),
+                    "pad_frac": (R * bm - vmax) / max(1, R * bm),
+                })
+            K = max(k_i for *_, k_i in per)
+            cols_np = np.zeros((p, R, K), dtype=np.int32)
+            cells_of = []       # each machine's flat cell ids and operands
+            for i, (urow, uslot, ucol, rows, cols, slot, w, _) in \
+                    enumerate(per):
+                cols_np[i, urow, uslot] = ucol
+                flat = (((rows // bm) * K + slot) * bm + rows % bm) * bm \
+                    + cols % bm
+                cells_of.append((flat, w))
+            del per
+            gather = np.zeros((p, R * bm), dtype=np.int64)
+            gather[:, :vmax] = np.stack(orders)
+            rank_np = np.stack(ranks).astype(np.int64)
+        with obs.span("layout.device"):
+            blocks = torch.empty((p, R, K, bm, bm), dtype=dt, device=dev)
+            stage = None if dt == torch.float32 else torch.empty(
+                (R, K, bm, bm), dtype=torch.float32, device=dev)
+            for i, (flat, w) in enumerate(cells_of):
+                cells = blocks[i] if stage is None else stage
+                cells.fill_(sr.absent)
+                sr.scatter_accum(cells.view(-1),
+                                 torch.from_numpy(flat).to(dev),
+                                 torch.from_numpy(w).to(dev))
+                if stage is not None:
+                    blocks[i].copy_(stage)          # one rounding to ``dt``
+            del stage
+            out = cls(cols=torch.from_numpy(cols_np).to(dev), blocks=blocks,
+                      gather=torch.from_numpy(gather).to(dev),
+                      rank=torch.from_numpy(rank_np).to(dev),
+                      block_size=bm, semiring=sr.name,
+                      fill_stats=tuple(stats))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return out
 
 
 def rank_of(order: np.ndarray, n: int) -> np.ndarray:
@@ -278,7 +298,8 @@ class PartitionRuntime:
                 raise ValueError(
                     f"create(source=<stream assignment>) takes only "
                     f"edge_weights=; got {bad + sorted(knobs)}")
-            return cls._pack_from_stream(source, edge_weights, dev)
+            with obs.span("pack"):
+                return cls._pack_from_stream(source, edge_weights, dev)
         if not (hasattr(source, "edges") and hasattr(source, "num_vertices")):
             raise ValueError(
                 f"create: source must be a Graph or a StreamAssignment "
@@ -296,8 +317,9 @@ class PartitionRuntime:
                     "targets)")
             from ..core.partitioners import get
             assign = get(method)(source, cluster, **knobs)
-            return cls._pack_from_assignment(source, assign, cluster.p,
-                                             edge_weights, dev)
+            with obs.span("pack"):
+                return cls._pack_from_assignment(source, assign, cluster.p,
+                                                 edge_weights, dev)
         if assign is None:
             raise ValueError(
                 "create(source=graph) needs either assign= (+ p= or "
@@ -313,7 +335,9 @@ class PartitionRuntime:
                     "create(source=graph, assign=...) requires p= or "
                     "cluster= for the machine count")
             p = cluster.p
-        return cls._pack_from_assignment(source, assign, p, edge_weights, dev)
+        with obs.span("pack"):
+            return cls._pack_from_assignment(source, assign, p,
+                                             edge_weights, dev)
 
     @classmethod
     def build(cls, g: Graph, assign: np.ndarray, p: int,

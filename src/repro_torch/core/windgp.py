@@ -24,10 +24,10 @@ expansion phase and SLS's re-partition operator):
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
+from .. import obs
 from . import capacity as cap
 from . import expand as exp
 from . import sls as sls_mod
@@ -37,6 +37,9 @@ from .machines import Cluster, PartitionStats, evaluate
 
 @dataclasses.dataclass(frozen=True)
 class WindGPResult:
+    """The assignment, its statistics and capacities, and the seconds of
+    the ``windgp`` span and of each phase's span (``windgp.<phase>``)."""
+
     assign: np.ndarray
     stats: PartitionStats
     deltas: np.ndarray
@@ -139,66 +142,66 @@ def windgp(
     """
     assert level in ("windgp-", "windgp*", "windgp+", "windgp")
     assert engine in exp.ENGINES, engine
-    t_start = time.perf_counter()
     phases = {}
+    with obs.span("windgp") as whole:
+        # Phase 1: capacities.
+        with obs.span("windgp.preprocess") as sp:
+            if level == "windgp-":
+                # Homogeneous target |E|/p, clamped by memory (naive
+                # baseline).
+                p = cluster.p
+                mem_cap = np.floor(cluster.memory()
+                                   / (cluster.m_edge + cluster.m_node
+                                      * g.num_vertices / max(1, g.num_edges)))
+                deltas = np.minimum(np.full(p, g.num_edges // p + 1), mem_cap)
+                deltas = deltas.astype(np.int64)
+                # ensure sum >= |E| by topping up machines with memory room
+                short = g.num_edges - int(deltas.sum())
+                j = 0
+                while short > 0 and j < p:
+                    room = int(mem_cap[j] - deltas[j])
+                    take = min(room, short)
+                    deltas[j] += take
+                    short -= take
+                    j += 1
+            else:
+                deltas = cap.capacities(cluster, g.num_vertices, g.num_edges)
+        phases["preprocess"] = sp.seconds
 
-    # Phase 1: capacities.
-    t0_ = time.perf_counter()
-    if level == "windgp-":
-        # Homogeneous target |E|/p, clamped by memory (naive baseline).
-        p = cluster.p
-        mem_cap = np.floor(cluster.memory()
-                           / (cluster.m_edge + cluster.m_node
-                              * g.num_vertices / max(1, g.num_edges)))
-        deltas = np.minimum(np.full(p, g.num_edges // p + 1), mem_cap)
-        deltas = deltas.astype(np.int64)
-        # ensure sum >= |E| by topping up machines with memory room
-        short = g.num_edges - int(deltas.sum())
-        j = 0
-        while short > 0 and j < p:
-            room = int(mem_cap[j] - deltas[j])
-            take = min(room, short)
-            deltas[j] += take
-            short -= take
-            j += 1
-    else:
-        deltas = cap.capacities(cluster, g.num_vertices, g.num_edges)
-    phases["preprocess"] = time.perf_counter() - t0_
+        # Phase 2: expansion.
+        with obs.span("windgp.expand") as sp:
+            if level in ("windgp-", "windgp*"):
+                a, b = 0.0, 0.0    # pure NE-style: only |N(v)\S| drives it
+            else:
+                a, b = alpha, beta
+            assign, orders = exp.run_expansion(
+                g, deltas, a, b, memories=cluster.memory(),
+                m_node=cluster.m_node, m_edge=cluster.m_edge,
+                engine=engine, **engine_kw)
+            assign = _repair_unassigned(g, assign, cluster, orders)
+        phases["expand"] = sp.seconds
 
-    # Phase 2: expansion.
-    t0_ = time.perf_counter()
-    if level in ("windgp-", "windgp*"):
-        a, b = 0.0, 0.0        # pure NE-style: only |N(v)\S| drives selection
-    else:
-        a, b = alpha, beta
-    assign, orders = exp.run_expansion(
-        g, deltas, a, b, memories=cluster.memory(),
-        m_node=cluster.m_node, m_edge=cluster.m_edge,
-        engine=engine, **engine_kw)
-    assign = _repair_unassigned(g, assign, cluster, orders)
-    phases["expand"] = time.perf_counter() - t0_
+        # Phase 3: subgraph-local search.
+        with obs.span("windgp.sls") as sp:
+            if level == "windgp":
+                assign, _ = sls_mod.sls(
+                    g, assign, cluster, orders, deltas, t0=t0, n0=n0,
+                    gamma=gamma, theta=theta, k=k, alpha=alpha, beta=beta,
+                    seed=seed, engine=engine, repair=repair, **engine_kw)
+        phases["sls"] = sp.seconds
 
-    # Phase 3: subgraph-local search.
-    t0_ = time.perf_counter()
-    if level == "windgp":
-        assign, _ = sls_mod.sls(
-            g, assign, cluster, orders, deltas, t0=t0, n0=n0,
-            gamma=gamma, theta=theta, k=k, alpha=alpha, beta=beta, seed=seed,
-            engine=engine, repair=repair, **engine_kw)
-    phases["sls"] = time.perf_counter() - t0_
+        # Phase 4 (optional): training-aware rebalance.
+        if train_mask is not None and train_balance:
+            with obs.span("windgp.train_balance") as sp:
+                assign = _train_rebalance(g, assign, cluster, orders,
+                                          train_mask, float(train_balance),
+                                          rounds=int(train_rounds))
+            phases["train_balance"] = sp.seconds
 
-    # Phase 4 (optional): training-aware rebalance.
-    if train_mask is not None and train_balance:
-        t0_ = time.perf_counter()
-        assign = _train_rebalance(g, assign, cluster, orders, train_mask,
-                                  float(train_balance),
-                                  rounds=int(train_rounds))
-        phases["train_balance"] = time.perf_counter() - t0_
-
-    stats = evaluate(g, assign, cluster)
+        stats = evaluate(g, assign, cluster)
     return WindGPResult(
         assign=assign, stats=stats, deltas=np.asarray(deltas),
-        seconds=time.perf_counter() - t_start, phase_seconds=phases)
+        seconds=whole.seconds, phase_seconds=phases)
 
 
 # ---------------------------------------------------------------------------

@@ -286,6 +286,26 @@ def test_pagerank_pallas_matches_scatter(runtimes):
     assert act.shape == (10, rt.p)
 
 
+def test_program_spans_leave_no_device_event(runtimes):
+    """The program's spans are host events in a profile of the card: none
+    is CUDA-typed, so none reads as device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    _, rt = runtimes
+    pagerank(rt, num_iters=2, backend="pallas", block_size=32)   # layout
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pagerank(rt, num_iters=5, backend="pallas", block_size=32)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    mine = [e for e in prof.events() if e.name.startswith(obs.PREFIX)]
+    assert [e.name for e in mine].count("repro_torch.bsp.superstep") == 5
+    assert not [e.name for e in mine if e.device_type == cuda]
+    assert any(e.device_type == cuda and "bsr_spmv" in e.name
+               for e in prof.events())
+
+
 SPARSE_APPS = {"sssp": (sssp, dict(source=0, num_iters=25)),
                "bfs": (bfs, dict(source=1, num_iters=25)),
                "cc": (connected_components, dict(num_iters=25))}

@@ -49,7 +49,7 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
             "repro_torch.launch.perf, repro_torch.launch.roofline, "
             "repro_torch.sharding.specs, repro_torch.models.moe_shardmap, "
-            "repro_torch.ranks; "
+            "repro_torch.ranks, repro_torch.obs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]; "
             "assert not bad, bad")
