@@ -6,9 +6,9 @@
 Phases (every check is stated with its tolerance; any failed check makes
 the script exit non-zero after it has printed what it measured):
 
-1. build the hand-written CUDA kernels (``bsr_spmv``, ``decode_attn``,
-   ``ssd``) from the sources in this checkout, one ``nvcc`` each, all at
-   once;
+1. build the hand-written CUDA kernels (``bsr_spmv``, ``bsr_spmv_rows``,
+   ``decode_attn``, ``ssd``) from the sources in this checkout, one
+   ``nvcc`` each, all at once;
 2. hold ``bsr_spmv`` against its plain PyTorch version on the card, for
    each semiring, on random layouts with ELL padding slots at bm = 128
    (the ring filled by bulk copies) and bm = 30 (filled by the producer's
@@ -19,14 +19,18 @@ the script exit non-zero after it has printed what it measured):
    boundary);
 3. drive the graph path through the port's CLI entry: ``graph500:16``,
    WindGP on the default cluster (3 super + 6 normal machines), PageRank
-   for 20 supersteps on the ``pallas`` backend (the kernel), on ``cuda``.
+   for 20 supersteps on the ``pallas`` backend (``bsr_spmv_rows`` over
+   the row layout), on ``cuda``.
    On the same runtime, the ``scatter`` backend and the float64 numpy
    oracle must agree within 1e-5·max(pr), and the PageRank mass within
    1e-5 relative;
-4. time ``bsr_spmv``, its plain version and a library yardstick on the
-   graph path's layout, and the superstep of both backends; then free the
-   graph path's 37 GB of blocks.  On the same runtime, one 37.2 GB
-   float32 layout at a time: 4b. SSSP, BFS (from the hub vertex) and CC
+4. time ``bsr_spmv_rows`` on the graph path's row layout (profiler, no
+   bytes floor: the 17 MB it reads can stay in L2; and with L2 flushed
+   before each call) beside its plain version and ``torch.sparse.mm``, and ``bsr_spmv``, its plain version
+   and a library yardstick on the dense 37 GB Block-ELL layout of the
+   same runtime, which no app reads any more, and the superstep of both
+   backends; then free the dense blocks.  On the same runtime: 4b. SSSP,
+   BFS (from the hub vertex) and CC
    through the ``pallas`` route, stepwise and fused (chunk 8, CUDA
    graphs), bitwise against ``scatter`` and the numpy/scipy oracles,
    fused equal to stepwise, with superstep times, walls and launches
@@ -38,15 +42,18 @@ the script exit non-zero after it has printed what it measured):
    within 1e-4·max(pr) of the same run with the kernel's plain version and
    against float32 ``scatter`` within 1e-2·max(pr) (bfloat16) or
    5e-2·max(pr) (float16), launches from the run's trace; the 16-bit
-   kernel held on its 18.6 GB layout inside ``plus_times_bounds``, where
-   two planted faults must fail the hold, and timed;
+   row kernel held on the run's row layout inside
+   ``plus_times_bounds_rows``, and the dense 16-bit kernel held on its
+   18.6 GB layout inside ``plus_times_bounds``, where two planted faults
+   must fail the hold, and timed;
    4e. ``triangle_count`` against the oracle at ``rmat:15``
    (at ``graph500:16`` nearly every edge takes the host fallback);
    4f. the paper's comparison at ``graph500:16`` on the default cluster:
    each of hash, dbh, greedy, hdrf, ebv, ne, metis and windgp through the
    CLI entry with ``pallas`` PageRank, within 1e-5·max(pr) of ``scatter``,
    and SSSP from the hub bitwise equal to ``scatter``, with the host
-   partition seconds, TC, RF, the layout's R, K, GB and build seconds,
+   partition seconds, TC, RF, the row layout's entries, MB and build
+   seconds,
    both supersteps and the peak memory, one layout at a time;
    4g. the out-of-core route: ``graph500:16``'s edge list written under
    ``build/``, streamed through the CLI (``--stream --method hdrf --dedup
@@ -82,17 +89,18 @@ the script exit non-zero after it has printed what it measured):
    the peak device memory;
    4j. the multi-device BSP path on 4f's WindGP partition: 9 gloo ranks
    (``spawn_machines``), one machine each, all on the one card, each
-   holding only its machine's layout (its own ELL width K).  Each rank
+   holding only its machine's row layout.  Each rank
    runs float32 PageRank on ``pallas`` stepwise and fused, SSSP, BFS (from
    the hub) and CC on ``pallas`` and ``scatter`` stepwise and fused, and
    bfloat16 PageRank on ``pallas``: SSSP, BFS and CC bitwise equal to
    4b's stacked runs, actives included, float32 PageRank within
    1e-5·max(pr) of phase 3's, bfloat16 within 4d's holds (1e-4·max(pr) of
    4d's stacked run, within 1e-2·max(pr) of float32), every rank
-   launching ``bsr_spmv`` once a superstep (under a mesh the fused chunk
-   is not captured, so its predicated tail launches too), every rank
-   returning the same and no rank's peak memory reaching the stacked
-   layout's.  Prints per rank its K, layout GB, peak GB, kernel ms (10
+   launching ``bsr_spmv_rows`` once a superstep (under a mesh the fused
+   chunk is not captured, so its predicated tail launches too), every
+   rank returning the same and no rank's layout reaching the stacked
+   layout's bytes.  Prints per rank its entries, layout MB, peak GB,
+   kernel ms (10
    back-to-back calls by CUDA events, the ranks taking turns) beside
    ``simulate_superstep_times``' modelled time, and the median exchange
    ``all_reduce`` ms and the superstep wall;
@@ -764,12 +772,14 @@ def random_layout(gen, semiring, p=3, R=16, K=5, C=16, bm=BM):
 
 
 def reset_launches():
-    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    """Every kernel wrapper's count set to 0; returns the ``pallas``
+    backend's (``bsr_spmv_rows``), ``decode_attn``'s and ``ssd``'s."""
+    from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_rows
     from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.ssd import ssd_chunked
-    for fn in (bsr_spmv, decode_attention, ssd_chunked):
+    for fn in (bsr_spmv, bsr_spmv_rows, decode_attention, ssd_chunked):
         fn.launches = 0
-    return bsr_spmv, decode_attention, ssd_chunked
+    return bsr_spmv_rows, decode_attention, ssd_chunked
 
 
 # ---------------------------------------------------------------------------
@@ -777,16 +787,17 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 def graph_path(gen, lines: list, stacked: dict):
-    """Phases 2-4; returns the kernel table entry of ``bsr_spmv`` and the
-    CLI run (graph, runtime), its layout released.  Keeps in ``stacked``
-    what phase 4j holds its ranks against: the assignment, PageRank and
-    its actives, K and the float32 layout's bytes."""
+    """Phases 2-4; returns the CLI run (graph, runtime), its layouts
+    released, and the kernel table entries of ``bsr_spmv`` and
+    ``bsr_spmv_rows``.  Keeps in ``stacked`` what phase 4j holds its ranks
+    against: the assignment, PageRank and its actives, and the float32
+    row layout's bytes."""
     from repro_torch.bsp import build_pagerank, pagerank, ref
-    from repro_torch.kernels.bsr_spmv import bsr_spmv_ref
+    from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
     from repro_torch.launch import partition as cli
 
     # -- phase 2: kernel vs plain version, per semiring --------------------
-    bsr_spmv = reset_launches()[0]
+    reset_launches()
     semiring_err = {}
     for bm in (BM, 30):
         for sr in ("plus_times", "min_plus", "or_and"):
@@ -807,16 +818,19 @@ def graph_path(gen, lines: list, stacked: dict):
 
     # -- phase 3: the graph path through the CLI entry ---------------------
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    rows_k = reset_launches()[0]
     t0 = time.perf_counter()
     res = cli.run(["--graph", GRAPH, "--method", "windgp", "--pagerank",
                    "--pagerank-iters", str(ITERS), "--backend", "pallas",
                    "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = bsr_spmv.launches
+    launches = rows_k.launches
     main_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    check(launches >= 1, "the graph path never launched bsr_spmv")
+    check(launches == ITERS, f"the graph path launched bsr_spmv_rows "
+          f"{launches} times in {ITERS} supersteps")
+    check(bsr_spmv.launches == 0, "the graph path launched the dense "
+          "bsr_spmv")
     g, rt, pr = res.graph, res.runtime, res.pagerank
     check(pr.shape == (g.num_vertices,) and bool(np.isfinite(pr).all()),
           "PageRank is not a finite (V,) vector")
@@ -832,7 +846,9 @@ def graph_path(gen, lines: list, stacked: dict):
     log(f"phase 3: graph path in {main_s:.1f}s, {launches} launches, "
         f"max|d| scatter {d_scatter:.3g} oracle {d_oracle:.3g}")
 
-    # -- phase 4: timings on the graph path's layout -----------------------
+    # -- phase 4: timings on the graph path's layouts ----------------------
+    rows_entry = rows_kernel_row(gen, rt, launches)
+    stacked["rows_bytes"] = rt.local_rows(block_size=BM).nbytes
     bsr = rt.local_bsr(block_size=BM, semiring="plus_times",
                        weights="weight")
     p, R, K = bsr.cols.shape
@@ -876,8 +892,7 @@ def graph_path(gen, lines: list, stacked: dict):
         f"library {library_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms")
 
     blocks_bytes = 4 * bsr.blocks.numel()
-    stacked.update(assign=res.assign, pagerank=(pr, res.actives), K=K,
-                   blocks_bytes=blocks_bytes)
+    stacked.update(assign=res.assign, pagerank=(pr, res.actives))
     total = torch.cuda.get_device_properties(0).total_memory
     lines.append({"graph": GRAPH, "V": g.num_vertices, "E": g.num_edges,
                   "p": rt.p, "vmax": rt.vmax, "emax": rt.emax,
@@ -898,7 +913,8 @@ def graph_path(gen, lines: list, stacked: dict):
         "name": "bsr_spmv", "route": "cuda",
         "source": "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu",
         "replaces": "src/repro/kernels/bsr_spmv/kernel.py:70",
-        "launches": launches, "launches_per_superstep": launches / ITERS,
+        "launches": 0, "launches_note": "no app launches it: the pallas "
+        "backend reads the row layout (bsr_spmv_rows)",
         "max_abs_err": max_abs_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "profiler_ms": times["ms"], "profiler_recorded": times["recorded"],
         "profiler_reps": times["reps"], "profiler_kernels": times["kernels"],
@@ -906,7 +922,82 @@ def graph_path(gen, lines: list, stacked: dict):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "library": "torch.matmul (p*R*K,bm,bm)@(p*R*K,bm,1) + sum over K",
-        "dtype": "float32"}
+        "dtype": "float32"}, rows_entry
+
+
+def rows_kernel_row(gen, rt, launches: int) -> dict:
+    """Phase 4's row of ``bsr_spmv_rows`` on the graph path's float32 row
+    layout: its profiler time a launch over whole sessions, as the
+    benchmark's ``spmv_ms`` reads it (the layout stays in L2 between the
+    calls, so no bytes floor is checked), and with a 128 MB write before
+    each call, which evicts it from the 50 MB L2; beside the work's bytes
+    bound
+    (each local directed edge's column id and value, x and y over Vmax),
+    the bytes the kernel reads, the plain version and ``torch.sparse.mm``
+    over the same cells as a CSR matrix; the kernel held against both."""
+    from repro_torch.kernels.bsr_spmv import bsr_spmv_rows
+    from repro_torch.kernels.bsr_spmv import rows as k_rows
+    rows = rt.local_rows(block_size=BM)
+    x = torch.rand((rt.p, rows.padded), generator=gen, device="cuda")
+    args = (rows.units, rows.cols, rows.vals, x)
+    y = bsr_spmv_rows(*args)
+    y_plain = k_rows.bsr_spmv_rows_ref(*args)
+    close(y, y_plain, dict(rtol=1e-5, atol=0.0), "bsr_spmv_rows on the "
+          "row layout")
+    times = timing(lambda: bsr_spmv_rows(*args), 50, bsr_spmv_rows,
+                   "bsr_spmv_rows_kernel")
+    flush = torch.empty(2 ** 25, device="cuda")
+
+    def cold():
+        flush.fill_(1.0)
+        return bsr_spmv_rows(*args)
+    cold_ms = timing(cold, 50, bsr_spmv_rows, "bsr_spmv_rows_kernel")["ms"]
+    del flush
+    plain_ms = burst_ms(lambda: k_rows.bsr_spmv_rows_ref(*args), 3)
+    pos, row = k_rows.unit_entries(rows.units, rows.padded)
+    c = rows.cols[pos].long()
+    keep = c >= 0
+    n = rt.p * rows.padded
+    col = row[keep] // rows.padded * rows.padded + c[keep]
+    order = torch.argsort(row[keep] * n + col)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(row[keep], minlength=n), 0)
+    csr = torch.sparse_csr_tensor(crow, col[order],
+                                  rows.vals[pos[keep]][order], size=(n, n))
+    xc = x.reshape(-1, 1)
+    close(torch.sparse.mm(csr, xc).view(rt.p, -1), y_plain,
+          dict(rtol=1e-5, atol=1e-6), "bsr_spmv_rows library yardstick")
+    library_ms = device_ms(lambda: torch.sparse.mm(csr, xc), 50)[0]
+    edges = int(np.asarray(rt.edges_per_machine).sum())
+    work = 2 * edges * 8 + rt.p * 2 * rt.vmax * 4
+    read = sum(t.numel() * t.element_size() for t in
+               (rows.units, rows.cols, rows.vals, x, y))
+    bound_ms = work / HBM_BYTES_PER_S * 1e3
+    stats = {k: sum(s[k] for s in rows.fill_stats)
+             for k in rows.fill_stats[0]}
+    log(f"phase 4: bsr_spmv_rows {times['ms']:.5f} ms (profiler; L2 flushed "
+        f"{cold_ms:.5f}), plain "
+        f"{plain_ms:.3f} ms, torch.sparse.mm {library_ms:.5f} ms, bound "
+        f"{bound_ms:.5f} ms ({work / 1e6:.2f} MB of work, "
+        f"{read / 1e6:.2f} MB read), {stats}")
+    del csr, crow
+    return {
+        "name": "bsr_spmv_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv_rows.cu",
+        "replaces": None, "dtype": "float32",
+        "launches": launches, "launches_per_superstep": launches / ITERS,
+        "max_abs_err": max_err(y, y_plain), "ms": times["ms"],
+        "ms_l2_flushed": cold_ms,
+        "profiler_recorded": times["recorded"],
+        "profiler_reps": times["reps"], "profiler_kernels": times["kernels"],
+        "launch": times["launch"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "work_mb": work / 1e6,
+        "read_mb": read / 1e6,
+        "read_bound_ms": read / HBM_BYTES_PER_S * 1e3,
+        "below_bytes_bound": times["ms"] < bound_ms,
+        "library_ms": library_ms,
+        "library": "torch.sparse.mm(CSR (p*n, p*n), x (p*n, 1))",
+        "layout": stats, "layout_mb": rows.nbytes / 1e6}
 
 
 # ---------------------------------------------------------------------------
@@ -979,32 +1070,32 @@ def hold_16bit_kernel(gen) -> dict:
 
 
 def counted(fn):
-    """``fn()`` with ``bsr_spmv``'s count set to 0 just before; returns
-    (result, launches, wall seconds)."""
-    bsr_spmv = reset_launches()[0]
+    """``fn()`` with the ``pallas`` kernel's count (``bsr_spmv_rows``) set
+    to 0 just before; returns (result, launches, wall seconds)."""
+    rows_k = reset_launches()[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, bsr_spmv.launches, time.perf_counter() - t0
+    return out, rows_k.launches, time.perf_counter() - t0
 
 
-#: the template argument of each storage type in the kernel's name
-KERNEL_TYPE = {"float32": ", float, ", "bfloat16": ", __nv_bfloat16, ",
-               "float16": ", __half, "}
+#: the template argument of each storage type in the row kernel's name
+KERNEL_TYPE = {"float32": ", float>", "bfloat16": ", __nv_bfloat16>",
+               "float16": ", __half>"}
 
 
 def fused_traced(fn, dtype: str, what: str):
     """A fused run ``fn()`` under torch.profiler (device activity, spin
-    kernels padding the window), with ``bsr_spmv``'s count set to 0 just
-    before.  The wrapper counts its eager launches; a call under a CUDA
+    kernels padding the window), with ``bsr_spmv_rows``' count set to 0
+    just before.  The wrapper counts its eager launches; a call under a CUDA
     graph's capture launches nothing, so the graph replays' launches are
     read from the run's trace, which records every launch.  Returns
-    (result, the ``bsr_spmv`` kernel names the trace shows, eager
+    (result, the ``bsr_spmv_rows`` kernel names the trace shows, eager
     launches, wall seconds of ``fn()``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    bsr_spmv = reset_launches()[0]
+    rows_k = reset_launches()[0]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         spin()
         t0 = time.perf_counter()
@@ -1012,12 +1103,14 @@ def fused_traced(fn, dtype: str, what: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         spin()
-    names = [e.get("name", "") for e in trace_kernels(prof)
-             if "bsr_spmv_kernel" in e.get("name", "")]
+    kernels = [e.get("name", "") for e in trace_kernels(prof)]
+    names = [n for n in kernels if "bsr_spmv_rows_kernel" in n]
+    check(not any("bsr_spmv_kernel" in n for n in kernels),
+          f"{what}: the trace shows the dense bsr_spmv")
     check(all(KERNEL_TYPE[dtype] in n for n in names),
-          f"{what}: the trace shows other bsr_spmv instances than "
+          f"{what}: the trace shows other bsr_spmv_rows instances than "
           f"{dtype}'s: {sorted(set(names))}")
-    return out, names, bsr_spmv.launches, wall
+    return out, names, rows_k.launches, wall
 
 
 def fused_counts(names: list, eager: int, steps_run: int, what: str) -> dict:
@@ -1061,7 +1154,7 @@ def hub(g) -> int:
 def sparse_apps(g, rt, lines: list, stacked: dict) -> dict:
     """Phase 4b: SSSP, BFS and CC at ``graph500:16`` through the pallas
     route, stepwise and fused, against ``scatter`` and the oracles; one
-    float32 layout (37.2 GB) at a time.  Keeps each app's results and
+    float32 row layout at a time.  Keeps each app's results and
     actives, stepwise and fused, in ``stacked`` for phase 4j."""
     from repro_torch.bsp import (bfs, build_app, connected_components,
                                  make_fused_runner, ref, run_bsp, sssp)
@@ -1085,7 +1178,8 @@ def sparse_apps(g, rt, lines: list, stacked: dict) -> dict:
         (res, acts), step_launches, step_s = counted(
             lambda: fn(rt, num_iters=SPARSE_ITERS, **pallas))
         check(step_launches == SPARSE_ITERS, f"{app}: stepwise launched "
-              f"bsr_spmv {step_launches} times in {SPARSE_ITERS} supersteps")
+              f"bsr_spmv_rows {step_launches} times in {SPARSE_ITERS} "
+              f"supersteps")
         (res_f, acts_f), names, eager, fused_s = fused_traced(
             lambda: fn(rt, num_iters=SPARSE_ITERS, fused=True, chunk=CHUNK,
                        **pallas), "float32", f"{app} fused")
@@ -1103,7 +1197,7 @@ def sparse_apps(g, rt, lines: list, stacked: dict) -> dict:
               f"{app}: != the numpy oracle")
         stacked[app] = {"stepwise": (res, acts), "fused": (res_f, acts_f)}
         # CUDA events over one superstep from the initial state (the
-        # pallas superstep streams the whole layout whatever the frontier)
+        # pallas superstep reads the whole layout whatever the frontier)
         step_ms = median_ms(lambda: spec.superstep(spec.state, spec.static),
                             10)
         # the fused runner reused: replays only (its graphs exist)
@@ -1222,7 +1316,8 @@ def low_precision_pagerank(gen, lines: list, stacked: dict) -> list:
     then float16 on the same runtime; each against the same run with the
     kernel's plain version, against float32 ``scatter``, and stepwise.
     The 16-bit kernel is held and timed on its layout.  Returns the kernel
-    table rows of the two instances.  Keeps the bfloat16 stepwise run, its
+    table rows of the dense kernel's two instances, and the row kernel's
+    launches and holds by dtype.  Keeps the bfloat16 stepwise run, its
     steps, the float32 run of as many steps and the assignment in
     ``stacked`` for phase 4j."""
     from unittest import mock
@@ -1230,9 +1325,12 @@ def low_precision_pagerank(gen, lines: list, stacked: dict) -> list:
     from repro_torch.bsp import backends, build_pagerank, make_fused_runner
     from repro_torch.bsp import pagerank
     from repro_torch.kernels.bsr_spmv import (bsr_spmv, bsr_spmv_ref,
+                                              bsr_spmv_rows,
+                                              bsr_spmv_rows_ref,
                                               plus_times_bounds)
+    from repro_torch.kernels.bsr_spmv.rows import plus_times_bounds_rows
     from repro_torch.launch import partition as cli
-    rows, out, rt = [], {}, None
+    rows, out, rt, by_dtype = [], {}, None, {}
     for dtype in ("bfloat16", "float16"):
         dt = getattr(torch, dtype)
         what = f"pagerank {dtype}"
@@ -1263,7 +1361,7 @@ def low_precision_pagerank(gen, lines: list, stacked: dict) -> list:
               f"{what} vs float32 scatter {err / scale} of max(pr), not in "
               f"(0, {PR_LOW_VS_F32_REL[dtype]}]")
         # the same run with the kernel's plain version in its place
-        with mock.patch.object(backends, "bsr_spmv", bsr_spmv_ref):
+        with mock.patch.object(backends, "bsr_spmv_rows", bsr_spmv_rows_ref):
             pr_plain, _ = pagerank(rt, num_iters=steps, backend="pallas",
                                    block_size=BM, message_dtype=dtype)
         d_plain = float(np.abs(pr - pr_plain).max())
@@ -1282,9 +1380,26 @@ def low_precision_pagerank(gen, lines: list, stacked: dict) -> list:
             stacked["pagerank_bfloat16"] = {"pr": pr_s, "steps": steps,
                                             "float32": pr32,
                                             "assign": res.assign}
-        # the kernel on this layout: held inside its bounds, where planted
-        # faults must fail; profiler time a launch, beside its plain
-        # version, a library call in the dtype and its bound
+        # the row kernel on the run's layout, inside its bounds
+        lay = rt.local_rows(block_size=BM, dtype=dtype)
+        xr = torch.rand((rt.p, lay.padded), generator=gen,
+                        device="cuda").to(dt)
+        args = (lay.units, lay.cols, lay.vals, xr)
+        yr, yr_plain = bsr_spmv_rows(*args), bsr_spmv_rows_ref(*args)
+        lo, hi = plus_times_bounds_rows(*args, BM)
+        check(within_bounds(yr, lo, hi) and within_bounds(yr_plain, lo, hi),
+              f"bsr_spmv_rows {dtype}: outside plus_times_bounds_rows")
+        by_dtype[dtype] = {
+            "launches": fused["traced"], "launches_fused": fused,
+            "launches_stepwise": step_launches,
+            "max_abs_err": max_err(yr, yr_plain),
+            "open_outputs": int((lo != hi).sum()),
+            "ms": timing(lambda: bsr_spmv_rows(*args), 50, bsr_spmv_rows,
+                         "bsr_spmv_rows_kernel")["ms"]}
+        del lay, xr, args, yr, yr_plain, lo, hi
+        # the dense kernel on its layout: held inside its bounds, where
+        # planted faults must fail; profiler time a launch, beside its
+        # plain version, a library call in the dtype and its bound
         spec = build_pagerank(rt, backend="pallas", block_size=BM,
                               message_dtype=dtype)
         bsr = rt.local_bsr(block_size=BM, semiring="plus_times",
@@ -1365,8 +1480,7 @@ def low_precision_pagerank(gen, lines: list, stacked: dict) -> list:
             "route": "cuda",
             "source": "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu",
             "replaces": "src/repro/kernels/bsr_spmv/kernel.py:70",
-            "dtype": dtype, "launches": fused["traced"],
-            "launches_fused": fused, "launches_stepwise": step_launches,
+            "dtype": dtype, "launches": 0,
             "max_abs_err": hold["max_abs_err"], "ms": kernel_ms,
             "kernel_ms": kernel_ms, "profiler_ms": times["ms"],
             "profiler_recorded": times["recorded"],
@@ -1380,14 +1494,16 @@ def low_precision_pagerank(gen, lines: list, stacked: dict) -> list:
                        f"+ sum over K"})
         log(f"phase 4d: {what} {steps} steps, vs float32 "
             f"{err / scale:.3g}·max(pr), vs plain run "
-            f"{d_plain / scale:.3g}·max(pr); bsr_spmv {kernel_ms:.3f} ms "
+            f"{d_plain / scale:.3g}·max(pr); bsr_spmv_rows "
+            f"{by_dtype[dtype]['ms']:.5f} ms; dense bsr_spmv {kernel_ms:.3f} ms "
             f"(bound {max(bytes_ms, ops_ms):.3f}, library {library_ms:.3f}), "
             f"peak {peak / 1e9:.1f} GB")
         del spec, bsr, runner, x, y, y_plain, xg, flat_blocks
         rt.clear_bsr_cache()
     torch.cuda.empty_cache()
-    lines.append({"low_precision_pagerank": out})
-    return rows
+    lines.append({"low_precision_pagerank": out,
+                  "bsr_spmv_rows_16bit": by_dtype})
+    return rows, by_dtype
 
 
 def triangle_phase(g, lines: list) -> dict:
@@ -1457,10 +1573,12 @@ def sssp_hold(rt, source: int, what: str) -> int:
     return launches
 
 
-def layout_bound_ms(bsr) -> float:
-    """The float32 kernel's bytes bound on a layout (x and y included)."""
-    p, R, K = bsr.cols.shape
-    nbytes = 4 * (bsr.blocks.numel() + bsr.cols.numel() + 2 * p * R * BM)
+def layout_bound_ms(rows) -> float:
+    """The float32 row kernel's bytes bound on a row layout: its units,
+    column ids and values, x and y once."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (rows.units, rows.cols, rows.vals)) \
+        + 2 * 4 * rows.p * rows.padded
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -1489,7 +1607,7 @@ def paper_comparison(lines: list) -> dict:
         if m in SAMPLING_METHODS:
             assigns[m] = res.assign
             kept = res.graph, res.cluster
-        check(launches == ITERS, f"{m}: pagerank launched bsr_spmv "
+        check(launches == ITERS, f"{m}: pagerank launched bsr_spmv_rows "
               f"{launches} times in {ITERS} supersteps")
         rt = res.runtime
         d_scatter = pagerank_hold(rt, res.pagerank, m)
@@ -1497,11 +1615,11 @@ def paper_comparison(lines: list) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        bsr = rt.local_bsr(block_size=BM, semiring="plus_times",
-                           weights="weight")
+        lay = rt.local_rows(block_size=BM, semiring="plus_times",
+                            weights="weight")
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        _, R, K = bsr.cols.shape
+        entries = sum(s["entries"] for s in lay.fill_stats)
         step_ms = {}
         for backend, opts in (("pallas", {"block_size": BM}),
                               ("scatter", {})):
@@ -1511,9 +1629,9 @@ def paper_comparison(lines: list) -> dict:
             def step():
                 state[0], _ = spec.superstep(state[0], spec.static)
             step_ms[backend] = median_ms(step, 10)
-        layout_gb = 4 * bsr.blocks.numel() / 1e9
-        bound_ms = layout_bound_ms(bsr)
-        del spec, state, bsr
+        layout_mb = lay.nbytes / 1e6
+        bound_ms = layout_bound_ms(lay)
+        del spec, state, lay
         rt.clear_bsr_cache()
         torch.cuda.empty_cache()
         sssp_launches = sssp_hold(rt, hub(res.graph), m)
@@ -1523,7 +1641,7 @@ def paper_comparison(lines: list) -> dict:
                   "feasible": res.report["feasible"],
                   "vmax": rt.vmax, "emax": rt.emax,
                   "replicas": rt.num_replicas,
-                  "R": R, "K": K, "layout_gb": layout_gb,
+                  "entries": entries, "layout_mb": layout_mb,
                   "layout_build_s": build_s,
                   "pallas_superstep_ms": step_ms["pallas"],
                   "scatter_superstep_ms": step_ms["scatter"],
@@ -1532,8 +1650,9 @@ def paper_comparison(lines: list) -> dict:
                   "pagerank_max_abs_vs_scatter": d_scatter,
                   "launches": {"pagerank": launches, "sssp": sssp_launches}}
         log(f"phase 4f: {m} partition {res.report['seconds']}s TC "
-            f"{res.report['TC']} RF {res.report['RF']}, layout R={R} K={K} "
-            f"{layout_gb:.1f} GB built in {build_s:.2f}s, superstep pallas "
+            f"{res.report['TC']} RF {res.report['RF']}, row layout {entries} "
+            f"entries {layout_mb:.1f} MB built in {build_s:.2f}s, superstep "
+            f"pallas "
             f"{step_ms['pallas']:.3f} ms scatter {step_ms['scatter']:.3f} "
             f"ms, peak {peak / 1e9:.1f} GB")
         del res, rt
@@ -1582,18 +1701,15 @@ def stream_route(lines: list):
     res, launches, wall = counted(lambda: cli.run(
         [*argv, "--out-dir", str(one), "--pagerank", "--pagerank-iters",
          str(ITERS), "--backend", "pallas", "--device", "cuda"]))
-    check(launches == ITERS, f"stream: pagerank launched bsr_spmv "
+    check(launches == ITERS, f"stream: pagerank launched bsr_spmv_rows "
           f"{launches} times in {ITERS} supersteps")
     check(res.report["spill"]["duplicate_rows"] == 0
           and sum(res.report["edges_per_machine"]) == g.num_edges,
           f"stream: {res.report['edges_per_machine']} edges placed of "
           f"{g.num_edges}")
     rt = res.runtime
-    bsr = rt.local_bsr(block_size=BM, semiring="plus_times",
-                       weights="weight")
-    _, R, K = bsr.cols.shape
-    layout_gb = 4 * bsr.blocks.numel() / 1e9
-    del bsr
+    layout_mb = rt.local_rows(block_size=BM, semiring="plus_times",
+                              weights="weight").nbytes / 1e6
     d_scatter = pagerank_hold(rt, res.pagerank, "stream")
     rt.clear_bsr_cache()
     peak = torch.cuda.max_memory_allocated()
@@ -1622,16 +1738,16 @@ def stream_route(lines: list):
            "edge_list_mb": path.stat().st_size / 1e6, "write_s": write_s,
            "stream_partition_s": res.report["seconds"], "cli_wall_s": wall,
            "TC": res.report["TC"], "RF": res.report["RF"],
-           "spill": res.report["spill"], "R": R, "K": K,
-           "layout_gb": layout_gb, "max_memory_allocated_gb": peak / 1e9,
+           "spill": res.report["spill"],
+           "layout_mb": layout_mb, "max_memory_allocated_gb": peak / 1e9,
            "pagerank_max_abs_vs_scatter": d_scatter, "launches": launches,
            "workers": {"workers": STREAM_WORKERS, "sync_blocks": 1,
                        "process_wall_s": workers_s,
                        "shards_equal": all(same)},
            "compact": compact}
     log(f"phase 4g: stream {STREAM_METHOD} two_pass in "
-        f"{res.report['seconds']}s TC {res.report['TC']}, layout "
-        f"{layout_gb:.1f} GB, pallas vs scatter {d_scatter:.3g}; "
+        f"{res.report['seconds']}s TC {res.report['TC']}, row layout "
+        f"{layout_mb:.1f} MB, pallas vs scatter {d_scatter:.3g}; "
         f"--workers {STREAM_WORKERS} in {workers_s:.1f}s, shards equal "
         f"{all(same)}; compact {compact['seconds']}s")
     lines.append({"stream_route": out})
@@ -2015,15 +2131,15 @@ def fused_launches(steps: int, budget: int) -> int:
 
 def mesh_rank(rt, mesh, runs: dict) -> dict:
     """One rank of phase 4j (a ``spawn_machines`` rank function): each
-    run of ``runs`` with ``bsr_spmv``'s count set to 0 just before and
-    read just after; then this machine's float32 PageRank layout (K, GB),
-    its kernel timed by CUDA events with the card to itself (the ranks
-    take turns), the exchange's ``all_reduce`` of the replica buffer, and
-    the superstep wall; and the rank's peak memory."""
+    run of ``runs`` with ``bsr_spmv_rows``' count set to 0 just before and
+    read just after; then this machine's float32 PageRank row layout
+    (entries, bytes), its kernel timed by CUDA events with the card to
+    itself (the ranks take turns), the exchange's ``all_reduce`` of the
+    replica buffer, and the superstep wall; and the rank's peak memory."""
     import torch.distributed as dist
     from repro_torch.bsp import (bfs, build_pagerank, connected_components,
                                  pagerank, run_bsp, sssp)
-    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.bsr_spmv import bsr_spmv_rows
     fns = {"pagerank": pagerank, "sssp": sssp, "bfs": bfs,
            "cc": connected_components}
     torch.cuda.reset_peak_memory_stats()
@@ -2031,29 +2147,30 @@ def mesh_rank(rt, mesh, runs: dict) -> dict:
     for key, (app, kw) in runs.items():
         torch.cuda.synchronize()
         dist.barrier()
-        bsr_spmv.launches = 0
+        bsr_spmv_rows.launches = 0
         t0 = time.perf_counter()
         res, acts = fns[app](rt, mesh=mesh, **kw)
         torch.cuda.synchronize()
         out["runs"][key] = {"res": res, "acts": acts,
-                            "launches": bsr_spmv.launches,
+                            "launches": bsr_spmv_rows.launches,
                             "wall_s": time.perf_counter() - t0}
     spec = build_pagerank(rt, backend="pallas", block_size=BM, mesh=mesh)
-    cols, blocks = spec.static["eb_bsr_cols"], spec.static["eb_bsr_blocks"]
-    x = torch.rand((1, cols.shape[1] * BM), device=blocks.device)
+    layout = [spec.static[f"eb_rows_{k}"] for k in ("units", "cols", "vals")]
+    dev = layout[0].device
+    x = torch.rand(tuple(spec.static["eb_rows_gather"].shape), device=dev)
     for r in range(mesh.size):          # one rank at a time on the card
         torch.cuda.synchronize()
         dist.barrier()
         if r == mesh.rank:
-            out["kernel_ms"] = burst_ms(lambda: bsr_spmv(cols, blocks, x),
-                                        10)
+            out["kernel_ms"] = burst_ms(
+                lambda: bsr_spmv_rows(*layout, x, "plus_times", BM), 10)
     # the exchange's all_reduce of the replica buffer on the card, and
     # beside it the same bytes from host memory (gloo's transport alone)
     # and their copies to the host and back (no collective)
     # and the fused runner's gate, one element
-    buf = torch.zeros(max(1, rt.num_replicas) + 1, device=blocks.device)
+    buf = torch.zeros(max(1, rt.num_replicas) + 1, device=dev)
     host = torch.zeros(buf.shape)
-    gate = torch.zeros(1, device=blocks.device)
+    gate = torch.zeros(1, device=dev)
     times = {"exchange": [], "exchange_host_buffer": [], "copies": [],
              "gate": []}
     for _ in range(20):
@@ -2075,10 +2192,10 @@ def mesh_rank(rt, mesh, runs: dict) -> dict:
     t0 = time.perf_counter()
     run_bsp(spec.superstep, spec.state, spec.static, ITERS, mesh=mesh)
     torch.cuda.synchronize()
-    nbytes = (blocks.numel() * blocks.element_size() + 4 * cols.numel()
-              + 2 * x.numel() * x.element_size())
-    out.update(K=int(cols.shape[2]), R=int(cols.shape[1]),
-               layout_gb=blocks.numel() * blocks.element_size() / 1e9,
+    layout_bytes = sum(t.numel() * t.element_size() for t in layout)
+    nbytes = layout_bytes + 2 * x.numel() * x.element_size()
+    out.update(entries=int((layout[1] >= 0).sum()),
+               layout_bytes=layout_bytes,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                **{f"{k}_ms_median": statistics.median(v)
                   for k, v in times.items()},
@@ -2098,10 +2215,11 @@ def mesh_phase(g, cl, assign, stacked: dict, lines: list) -> dict:
     actives included; float32 PageRank within 1e-5·max(pr) of phase 3's;
     bfloat16 PageRank within 1e-4·max(pr) of phase 4d's stacked stepwise
     run and within (0, 1e-2·max(pr)] of float32 (phase 4d's holds); every
-    rank launching ``bsr_spmv`` once a superstep; every rank returning the
-    same; no rank's peak memory reaching the stacked float32 layout's.
-    Returns the ranks' ``bsr_spmv`` launches on the runs by message dtype
-    (the kernel's instance): ``{dtype: [launches of rank r]}``."""
+    rank launching ``bsr_spmv_rows`` once a superstep; every rank
+    returning the same; no rank's row layout reaching the stacked float32
+    row layout's bytes.  Returns the ranks' ``bsr_spmv_rows`` launches on
+    the runs by message dtype (the kernel's instance):
+    ``{dtype: [launches of rank r]}``."""
     from repro_torch.bsp import (PartitionRuntime, simulate_superstep_times,
                                  spawn_machines)
     low = stacked["pagerank_bfloat16"]
@@ -2156,14 +2274,15 @@ def mesh_phase(g, cl, assign, stacked: dict, lines: list) -> dict:
                       if mode == "fused" else steps)
             got_l = [r["runs"][key]["launches"] for r in ranks]
             check(got_l == [want_l] * p, f"phase 4j {key}: ranks launched "
-                  f"bsr_spmv {got_l} times, expected {want_l} each")
-    peak = [r["peak_gb"] for r in ranks]
-    check(max(peak) * 1e9 < stacked["blocks_bytes"], f"phase 4j: a rank's "
-          f"peak {max(peak)} GB reaches the stacked layout's "
-          f"{stacked['blocks_bytes'] / 1e9} GB")
+                  f"bsr_spmv_rows {got_l} times, expected {want_l} each")
+    mine = [r["layout_bytes"] for r in ranks]
+    check(max(mine) < stacked["rows_bytes"], f"phase 4j: a rank's row "
+          f"layout of {max(mine)} bytes reaches the stacked one's "
+          f"{stacked['rows_bytes']}")
     rt = PartitionRuntime.build(g, assign, p, device="cuda")   # host arrays
     modelled = simulate_superstep_times(rt, cl)[0]
-    per_rank = [{"rank": r["rank"], "K": r["K"], "layout_gb": r["layout_gb"],
+    per_rank = [{"rank": r["rank"], "entries": r["entries"],
+                 "layout_mb": r["layout_bytes"] / 1e6,
                  "peak_gb": r["peak_gb"], "kernel_ms": r["kernel_ms"],
                  "bound_ms": r["bound_ms"],
                  "modelled_superstep": float(modelled[r["rank"]]),
@@ -2179,10 +2298,9 @@ def mesh_phase(g, cl, assign, stacked: dict, lines: list) -> dict:
                          if kw.get("message_dtype", "float32") == dt)
                      for r in ranks] for dt in ("float32", "bfloat16")}
     out = {"graph": GRAPH, "ranks": p, "backend": "gloo",
-           "devices": "cuda:0, shared", "R": ranks[0]["R"],
-           "stacked_K": stacked["K"],
-           "stacked_layout_gb": stacked["blocks_bytes"] / 1e9,
-           "layout_gb_sum": sum(r["layout_gb"] for r in ranks),
+           "devices": "cuda:0, shared",
+           "stacked_layout_mb": stacked["rows_bytes"] / 1e6,
+           "layout_mb_sum": sum(r["layout_mb"] for r in per_rank),
            "kernel_ms_sum": sum(r["kernel_ms"] for r in ranks),
            "bound_ms_sum": sum(r["bound_ms"] for r in ranks),
            "per_rank": per_rank,
@@ -2199,16 +2317,17 @@ def mesh_phase(g, cl, assign, stacked: dict, lines: list) -> dict:
            "launches_per_rank": launches}
     lines.append({"mesh": out})
     for r in per_rank:
-        log(f"phase 4j: rank {r['rank']} K={r['K']} "
-            f"{r['layout_gb']:.2f} GB, peak {r['peak_gb']:.2f} GB, kernel "
+        log(f"phase 4j: rank {r['rank']} {r['entries']} entries "
+            f"{r['layout_mb']:.2f} MB, peak {r['peak_gb']:.2f} GB, kernel "
             f"{r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f}), modelled "
             f"{r['modelled_superstep']:.4g}")
     log(f"phase 4j: {p} ranks in {wall:.1f}s, exchange all_reduce "
         f"{out['exchange_all_reduce_ms_median']:.3f} ms (from host memory "
         f"{out['exchange_host_buffer_ms_median']:.3f}, gate "
         f"{out['gate_all_reduce_ms_median']:.3f}), superstep wall "
-        f"{out['superstep_wall_ms']:.2f} ms, K {min(r['K'] for r in per_rank)}"
-        f"-{max(r['K'] for r in per_rank)} (stacked {stacked['K']})")
+        f"{out['superstep_wall_ms']:.2f} ms, row layouts "
+        f"{out['layout_mb_sum']:.2f} MB (stacked "
+        f"{out['stacked_layout_mb']:.2f})")
     return launches
 
 
@@ -3296,7 +3415,8 @@ def dryrun_bsp(lines: list) -> dict:
     """``dryrun --bsp`` on the card: every (app × backend) superstep once on
     8 gloo ranks sharing it.  Held: every rank all-reduces one (replicas +
     1,) float32 buffer a superstep, a ``pallas`` superstep launches
-    ``bsr_spmv`` once on each rank and the others never, and the gathered
+    ``bsr_spmv_rows`` once on each rank and the others never, and the
+    gathered
     result equals one superstep of the stacked run on the card (PageRank
     within 1e-5·max(pr), as phase 4j holds it; the others bitwise).
     Returns the ``pallas`` rows' launches a rank."""
@@ -3320,7 +3440,8 @@ def dryrun_bsp(lines: list) -> dict:
         want = 1 if rec["backend"] == "pallas" else 0
         got_l = [r["bsr_spmv_launches"] for r in ranks]
         check(len(ranks) == cl.p and got_l == [want] * cl.p,
-              f"{tag}: bsr_spmv launched {got_l} on {len(ranks)} ranks")
+              f"{tag}: bsr_spmv_rows launched {got_l} on {len(ranks)} "
+              f"ranks")
         check(all(r["exchange_all_reduce_bytes"] == buf and
                   r["exchange_all_reduce_calls"] == 1 for r in ranks),
               f"{tag}: exchange all-reduced "
@@ -3844,12 +3965,13 @@ def elastic_phase(lines: list) -> dict:
 # phase 12: the examples on the card
 # ---------------------------------------------------------------------------
 
-#: run an example with the ``bsr_spmv`` wrapper's launches printed at exit
+#: run an example with the ``pallas`` kernel wrapper's launches
+#: (``bsr_spmv_rows``) printed at exit
 COUNT_LAUNCHES = r"""
 import atexit, runpy, sys
-from repro_torch.kernels.bsr_spmv import bsr_spmv
-atexit.register(lambda: print("bsr_spmv launches", bsr_spmv.launches,
-                              flush=True))
+from repro_torch.kernels.bsr_spmv import bsr_spmv_rows
+atexit.register(lambda: print("bsr_spmv_rows launches",
+                              bsr_spmv_rows.launches, flush=True))
 sys.argv = sys.argv[1:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
@@ -3947,25 +4069,26 @@ def examples_phase(lines: list) -> int:
     check(len(errs) == 3 and max(errs) <= 1e-5,
           f"phase 12: PageRank maxerr {errs} beyond 1e-5")
     el = text["torch_partition_edgelist"]
-    launches = [int(m) for m in re.findall(r"^bsr_spmv launches (\d+)$", el,
-                                           re.M)]
+    launches = [int(m) for m in re.findall(r"^bsr_spmv_rows launches (\d+)$",
+                                           el, re.M)]
     steps = [int(m) for m in re.findall(r"^pagerank\[pallas/stepwise/"
                                         r"float32\]: (\d+)/", el, re.M)]
     check(len(launches) == 1 and len(steps) == 1 and steps[0] > 0
           and launches[0] == steps[0], f"phase 12: torch_partition_edgelist "
-          f"launched bsr_spmv {launches} times for {steps} supersteps")
+          f"launched bsr_spmv_rows {launches} times for {steps} "
+          f"supersteps")
     check("checkpoints in " in text["torch_train_lm"]
           and re.search(r"^step +60  loss ", text["torch_train_lm"], re.M),
           "phase 12: torch_train_lm did not train 60 steps")
     out = {"walls_s": walls, "maxerr": errs,
            "tc_rf_equal_to_core": want,
-           "bsr_spmv_launches_partition_edgelist": launches[:1],
+           "bsr_spmv_rows_launches_partition_edgelist": launches[:1],
            "pagerank_supersteps": steps[:1],
            "train_lm_last_step": [l for l in text["torch_train_lm"]
                                   .splitlines() if l.startswith("step")][-1:]}
     lines.append({"examples": out})
     log(f"phase 12: examples {({k: round(v, 1) for k, v in walls.items()})}"
-        f" s, maxerr {errs}, bsr_spmv {launches} launches")
+        f" s, maxerr {errs}, bsr_spmv_rows {launches} launches")
     return launches[0] if launches else 0
 
 
@@ -3983,6 +4106,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.bsr_spmv import kernel as k_spmv
+    from repro_torch.kernels.bsr_spmv import rows as k_rows
     from repro_torch.kernels.decode_attn import kernel as k_attn
     from repro_torch.kernels.ssd import kernel as k_ssd
 
@@ -3997,8 +4121,9 @@ def main() -> int:
 
     # -- phase 1: build, one nvcc per source, all at once ------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        built = list(pool.map(lambda m: m.build(), (k_spmv, k_attn, k_ssd)))
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        built = list(pool.map(lambda m: m.build(),
+                              (k_spmv, k_rows, k_attn, k_ssd)))
     log(f"phase 1: built {[b.path.name for b in built]} in "
         f"{time.perf_counter() - t0:.1f}s")
     for b in built:
@@ -4012,7 +4137,7 @@ def main() -> int:
         f"{errs16}")
     lines.append({"bsr_spmv_16bit_max_abs_err": errs16})
     stacked: dict = {}
-    res, spmv_entry = graph_path(gen, lines, stacked)
+    res, dense_entry, spmv_entry = graph_path(gen, lines, stacked)
     torch.cuda.empty_cache()
     apps = sparse_apps(res.graph, res.runtime, lines, stacked)
     spmv_entry["launches_sparse_apps"] = {
@@ -4021,7 +4146,8 @@ def main() -> int:
     graph = res.graph
     del res
     torch.cuda.empty_cache()
-    spmv_16bit = low_precision_pagerank(gen, lines, stacked)
+    spmv_16bit, rows_16bit = low_precision_pagerank(gen, lines, stacked)
+    spmv_entry["by_16bit_dtype"] = rows_16bit
     triangle_phase(graph, lines)
     torch.cuda.empty_cache()
 
@@ -4044,11 +4170,10 @@ def main() -> int:
     # -- phase 4j: the multi-device BSP path -------------------------------
     mesh_launches = mesh_phase(g500, cl500, assigns["windgp"], stacked,
                                lines)
-    for entry in (spmv_entry, *spmv_16bit):
-        per_rank = mesh_launches.get(entry["dtype"])
-        if per_rank:
-            entry["launches_mesh"] = sum(per_rank)
-            entry["launches_mesh_per_rank"] = per_rank
+    for dtype, per_rank in mesh_launches.items():
+        entry = spmv_entry if dtype == "float32" else rows_16bit[dtype]
+        entry["launches_mesh"] = sum(per_rank)
+        entry["launches_mesh_per_rank"] = per_rank
     del g500, assigns
 
     # -- phase 5 ----------------------------------------------------------
@@ -4172,7 +4297,7 @@ def main() -> int:
 
     for line in lines:
         print(json.dumps(line))
-    print(json.dumps({"kernels": [spmv_entry, *spmv_16bit, {
+    print(json.dumps({"kernels": [spmv_entry, dense_entry, *spmv_16bit, {
         "name": "decode_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/kernel.py:59",

@@ -18,7 +18,7 @@ reference's.
 W-process pipeline, and ``--pagerank`` packs the shards into the BSP
 runtime on ``--device`` (default ``cuda``) and runs PageRank through
 ``--backend``: ``scatter``, ``segment`` or ``pallas``, the hand-written
-``bsr_spmv`` kernel on the card (its plain version on the CPU), with
+``bsr_spmv_rows`` kernel on the card (its plain version on the CPU), with
 ``--fused``, ``--tol`` and ``--message-dtype`` as in the reference.  The
 reference example's docstring walks through these workflows and the
 dynamic and sampling layers, whose port counterparts are

@@ -2,8 +2,9 @@
 
 The host-side partitioner (``core``, ``data``) is numpy, as in the JAX
 package it mirrors; the BSP runtime (``bsp``) runs on torch tensors, and
-the Block-ELL semiring SpMV (``kernels.bsr_spmv``) is a hand-written CUDA
-kernel for Hopper (``sm_90a``).  Every entry point takes ``device=``,
+the semiring SpMV (``kernels.bsr_spmv``: the row layout's kernel the
+``pallas`` backend launches, and the dense Block-ELL kernel) is
+hand-written CUDA for Hopper (``sm_90a``).  Every entry point takes ``device=``,
 defaulting to ``"cuda"``, and raises when no GPU is present unless the
 caller asks for ``"cpu"``.
 """

@@ -4,7 +4,7 @@ Each *machine* is one slice of a leading machine axis; cross-machine vertex
 synchronization is a fixed-shape reduction over the replicated-vertex
 table, whose size shrinks with partition quality.
 """
-from .partition_runtime import LocalBSR, PartitionRuntime
+from .partition_runtime import LocalBSR, LocalRows, PartitionRuntime
 from .stream_assignment import StreamAssignment, write_json_atomic
 from .backends import (BACKENDS, MESSAGE_DTYPES, EdgeBackend, get_backend,
                        frontier_entries)
@@ -18,7 +18,7 @@ from .apps import (APP_BUILDERS, MONOTONE_APPS, AppSpec, RunOptions,
 from . import ref
 from .simulate import simulate_runtime, simulate_superstep_times
 
-__all__ = ["PartitionRuntime", "LocalBSR", "StreamAssignment",
+__all__ = ["PartitionRuntime", "LocalBSR", "LocalRows", "StreamAssignment",
            "write_json_atomic",
            "BACKENDS", "MESSAGE_DTYPES", "EdgeBackend", "get_backend",
            "frontier_entries", "exchange", "make_fused_runner", "make_step",

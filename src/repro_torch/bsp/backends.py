@@ -15,10 +15,15 @@ merged into the superstep's static tree and ``combine(sa, x)`` maps the
     dump segment for padding: (+, ×) differences a running sum at the row
     pointers, (min, +) and (or, and) reduce each sorted segment.
 ``pallas``
-    The Block-ELL hand kernel (``kernels/bsr_spmv``) over
-    ``rt.local_bsr()``'s degree-sorted per-machine layout: ``x[gather]``,
-    the kernel, then ``y[rank]``.  The name is the reference's, so that
-    ``--backend pallas`` drives the counterpart in both command lines.
+    The row-layout hand kernel (``kernels/bsr_spmv/rows.py``) over
+    ``rt.local_rows()``'s degree-sorted per-machine rows, whose bytes follow
+    the edges: ``x[gather]``, the kernel, then ``y[rank]``.  The name is
+    the reference's, so that ``--backend pallas`` drives the counterpart
+    in both command lines; ``block_size`` keeps the reference's meaning
+    for 16-bit (+, ×), the column group each rounded sum covers.  (The
+    dense Block-ELL layout, ``rt.local_bsr()``, and its kernel
+    ``bsr_spmv`` read every cell of each nonzero 128 × 128 block: 37 GB
+    for 16.9 MB of work at ``graph500:16``.)
 
 (+, ×) results agree across backends to float32 reassociation; (min, +)
 and (or, and) are exact, so the sparse apps agree bitwise.
@@ -32,7 +37,7 @@ Two knobs every backend understands, as in the reference:
     it: a float16 product is rounded to float16, a bfloat16 product is
     kept in float32 (XLA widens bfloat16 arithmetic and, under its
     default ``xla_allow_excess_precision``, drops the rounding before the
-    cast back).  ``pallas`` stores its blocks in the message dtype and
+    cast back).  ``pallas`` stores its values in the message dtype and
     ⊕-accumulates in it too (``kernels/bsr_spmv``).
 
 ``frontier_cap`` (``scatter`` only, default ``None``)
@@ -53,7 +58,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..kernels.bsr_spmv import bsr_spmv, get_semiring
+from ..kernels.bsr_spmv import bsr_spmv_rows, get_semiring
 from .engine import exchange
 from .partition_runtime import (MESSAGE_DTYPES, WEIGHT_KINDS, edge_operand,
                                 message_dtype as _torch_dtype)
@@ -283,7 +288,7 @@ def _segment_prepare_factory(message_dtype: str = "float32"):
 
 
 # ---------------------------------------------------------------------------
-# pallas: the Block-ELL hand kernel over the degree-sorted local adjacency
+# pallas: the row-layout hand kernel over the degree-sorted local adjacency
 # ---------------------------------------------------------------------------
 
 def _pallas_prepare_factory(block_size: int = 128,
@@ -291,18 +296,20 @@ def _pallas_prepare_factory(block_size: int = 128,
     def prepare(rt, semiring: str, weights: str):
         sr = get_semiring(semiring)
         mdt = _torch_dtype(message_dtype)
-        bsr = rt.local_bsr(block_size=block_size, semiring=sr.name,
-                           weights=weights, dtype=message_dtype)
-        extras = {"eb_bsr_cols": bsr.cols, "eb_bsr_blocks": bsr.blocks,
-                  "eb_bsr_gather": bsr.gather, "eb_bsr_rank": bsr.rank}
+        rows = rt.local_rows(block_size=block_size, semiring=sr.name,
+                             weights=weights, dtype=message_dtype)
+        extras = {"eb_rows_units": rows.units, "eb_rows_cols": rows.cols,
+                  "eb_rows_vals": rows.vals, "eb_rows_gather": rows.gather,
+                  "eb_rows_rank": rows.rank}
 
         def combine(sa, x):
-            # blocks are stored in the message dtype; x joins them, so the
-            # kernel computes (and, unlike scatter/segment, ⊕-accumulates)
-            # in that dtype
-            xb = torch.gather(x, 1, sa["eb_bsr_gather"]).to(mdt)
-            y = bsr_spmv(sa["eb_bsr_cols"], sa["eb_bsr_blocks"], xb, sr.name)
-            return torch.gather(y, 1, sa["eb_bsr_rank"]).to(x.dtype)
+            # values are stored in the message dtype; x joins them, so the
+            # kernel rounds (and, unlike scatter/segment, ⊕-accumulates
+            # 16-bit (+, ×) groups) in that dtype
+            xb = torch.gather(x, 1, sa["eb_rows_gather"]).to(mdt)
+            y = bsr_spmv_rows(sa["eb_rows_units"], sa["eb_rows_cols"],
+                              sa["eb_rows_vals"], xb, sr.name, block_size)
+            return torch.gather(y, 1, sa["eb_rows_rank"]).to(x.dtype)
 
         return extras, combine
 
@@ -318,7 +325,7 @@ _REGISTRY = {
         "segment", "sorted-CSR reduction (cumsum difference)",
         _segment_prepare_factory(message_dtype)),
     "pallas": lambda block_size=128, message_dtype="float32": EdgeBackend(
-        "pallas", "Block-ELL hand kernel",
+        "pallas", "row-layout hand kernel",
         _pallas_prepare_factory(block_size, message_dtype)),
 }
 

@@ -15,8 +15,11 @@ leading machine axis ``(p, ...)``:
 
 These are packed on the host in numpy, exactly as the reference packs
 them; ``device`` says where the BSP apps put their tensors.
-:meth:`PartitionRuntime.local_bsr` builds each machine's blocked local
-adjacency (:class:`LocalBSR`), whose dense blocks are filled on the device.
+:meth:`PartitionRuntime.local_rows` builds each machine's local adjacency
+as rows of (column, value) entries (:class:`LocalRows`), the layout the
+``pallas`` backend reads; :meth:`PartitionRuntime.local_bsr` builds the
+dense Block-ELL counterpart of the reference's layout (:class:`LocalBSR`),
+whose blocks are filled on the device.
 """
 from __future__ import annotations
 
@@ -205,6 +208,107 @@ class LocalBSR:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class LocalRows:
+    """Per-machine local adjacency as rows of (column, value) entries,
+    stacked over machines: the layout of ``kernels/bsr_spmv/rows.py``,
+    whose bytes follow the edges.
+
+    Rows and columns are :class:`LocalBSR`'s positions (the same
+    degree-sorted relabeling, and the same ``gather`` and ``rank``), over
+    ``padded`` ids a machine.  Each cell is the dense layout's cell at the
+    same (row, col), bitwise; the absent cells are not stored, and a
+    machine with fewer vertices than Vmax stores no rows for the rest.
+    ``block_size`` is the dense layout's, the column group of 16-bit
+    (+, ×).  ``fill_stats`` holds per machine the entries, the rows each
+    kind of work unit handles and the padding cells.
+    """
+
+    units: torch.Tensor     # (U, 4) int32 work units
+    cols: torch.Tensor      # (N,) int32 column positions (-1: padding)
+    vals: torch.Tensor      # (N,) message dtype
+    gather: torch.Tensor    # (p, padded) int64: position -> local index
+    rank: torch.Tensor      # (p, Vmax) int64: local index -> position
+    block_size: int
+    semiring: str
+    fill_stats: tuple
+
+    @property
+    def p(self) -> int:
+        return self.gather.shape[0]
+
+    @property
+    def padded(self) -> int:
+        return self.gather.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the layout's tensors."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.units, self.cols, self.vals, self.gather, self.rank))
+
+    @classmethod
+    def build(cls, rt: "PartitionRuntime", *, block_size: int = 128,
+              semiring: str = "plus_times", weights: str = "weight",
+              dtype: str = "float32") -> "LocalRows":
+        """Row layout from ``rt.local_edges`` on ``rt.device``.
+
+        On the host (span ``layout.host``): each machine's order, ranks and
+        ``gather`` exactly as :meth:`LocalBSR.build` computes them; every
+        edge in both directions at its (row, col) cell, parallel edges
+        ⊕-merged in float32 in the order ``LocalBSR`` scatters them
+        (``np_accum_at``, as the reference accumulates a cell); then the
+        units and entries (``rows.pack_rows``).  On the device (span
+        ``layout.device``): the copies, the values rounded once to the
+        message dtype, ending on one synchronize where the device is CUDA.
+        The layout's device bytes are counted once (``layout.bytes``)."""
+        from ..kernels.bsr_spmv.rows import pack_rows
+        sr = get_semiring(semiring)
+        dt = message_dtype(dtype)
+        p, vmax, bm = rt.p, rt.vmax, int(block_size)
+        n = max(1, -(-vmax // bm)) * bm
+        dev = rt.device
+        with obs.span("layout.host"):
+            machines, orders, ranks = [], [], []
+            for i in range(p):
+                ev = rt.edge_valid[i]
+                e = rt.local_edges[i][ev].astype(np.int64)
+                deg = np.zeros(vmax, dtype=np.int64)
+                np.add.at(deg, e[:, 0], 1)
+                np.add.at(deg, e[:, 1], 1)
+                order = np.argsort(-deg, kind="stable").astype(np.int32)
+                rank = rank_of(order, vmax)
+                w = edge_operand(rt.edge_weight[i][ev],
+                                 weights).astype(np.float32)
+                e = rank[e].astype(np.int64)
+                key = np.concatenate([e[:, 0] * n + e[:, 1],
+                                      e[:, 1] * n + e[:, 0]])
+                cells, inv = np.unique(key, return_inverse=True)
+                vals = np.full(len(cells), sr.absent, dtype=np.float32)
+                sr.np_accum_at(vals, inv.reshape(-1),
+                               np.concatenate([w, w]))
+                machines.append((cells // n, (cells % n).astype(np.int32),
+                                 vals))
+                orders.append(order)
+                ranks.append(rank)
+            units, cols, vals, stats = pack_rows(machines, n, sr.absent)
+            del machines
+            gather = np.zeros((p, n), dtype=np.int64)
+            gather[:, :vmax] = np.stack(orders)
+            rank_np = np.stack(ranks).astype(np.int64)
+        with obs.span("layout.device"):
+            out = cls(units=torch.from_numpy(units).to(dev),
+                      cols=torch.from_numpy(cols).to(dev),
+                      vals=torch.from_numpy(vals).to(dev).to(dt),
+                      gather=torch.from_numpy(gather).to(dev),
+                      rank=torch.from_numpy(rank_np).to(dev),
+                      block_size=bm, semiring=sr.name, fill_stats=stats)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        obs.count("layout.bytes", out.nbytes)
+        return out
+
+
 def rank_of(order: np.ndarray, n: int) -> np.ndarray:
     """Inverse permutation: position of each of ``n`` items in ``order``."""
     rank = np.empty(n, dtype=np.int32)
@@ -256,10 +360,24 @@ class PartitionRuntime:
                 weights=weights, dtype=dtype)
         return self._bsr_cache[key]
 
+    def local_rows(self, *, block_size: int = 128,
+                   semiring: str = "plus_times", weights: str = "weight",
+                   dtype: str = "float32") -> LocalRows:
+        """The per-machine row layout (:class:`LocalRows`), built once per
+        (block_size, semiring, weights, dtype) and cached on the runtime
+        beside :meth:`local_bsr`'s layouts."""
+        key = ("rows", int(block_size), get_semiring(semiring).name,
+               str(weights), str(dtype))
+        if key not in self._bsr_cache:
+            self._bsr_cache[key] = LocalRows.build(
+                self, block_size=block_size, semiring=semiring,
+                weights=weights, dtype=dtype)
+        return self._bsr_cache[key]
+
     def clear_bsr_cache(self) -> None:
-        """Drop every cached :class:`LocalBSR`, so that its device memory
-        is freed once no app holds it (a layout at ``graph500:16`` is
-        18.6–37.2 GB)."""
+        """Drop every cached :class:`LocalBSR` and :class:`LocalRows`, so
+        that their device memory is freed once no app holds them (a dense
+        layout at ``graph500:16`` is 18.6–37.2 GB)."""
         self._bsr_cache.clear()
 
     @classmethod

@@ -335,10 +335,11 @@ def bsp_rank(rt, mesh, todo) -> list:
     """One rank of ``--bsp`` (a ``spawn_machines`` rank function): for each
     (app, backend) of ``todo``, build the app on this rank's machine, run
     one superstep, and record the bytes its exchange all-reduced, the
-    rank's tensors and peak memory, ``bsr_spmv``'s launches, and the
-    global result after the superstep (gathered)."""
+    rank's tensors and peak memory, the ``pallas`` kernel's launches
+    (``bsr_spmv_rows``), and the global result after the superstep
+    (gathered)."""
     from ..bsp import build_app, gather_machines
-    from ..kernels.bsr_spmv import bsr_spmv
+    from ..kernels.bsr_spmv import bsr_spmv_rows
     counting = CountingMachines(mesh.group, mesh.rank, mesh.size, mesh.device)
     on_cuda = mesh.device.type == "cuda"
     out = []
@@ -349,11 +350,11 @@ def bsp_rank(rt, mesh, todo) -> list:
         opts = {"block_size": 32} if backend == "pallas" else {}
         spec = build_app(rt, app, backend=backend, mesh=counting, **opts)
         counting.counts.clear()
-        bsr_spmv.launches = 0
+        bsr_spmv_rows.launches = 0
         state, _ = spec.superstep(spec.state, spec.static)
         if on_cuda:
             torch.cuda.synchronize()
-        launches = bsr_spmv.launches
+        launches = bsr_spmv_rows.launches
         calls, nbytes = counting.counts.get("all_reduce", (0, 0))
         result = spec.finalize(rt, gather_machines(state, counting))
         out.append({

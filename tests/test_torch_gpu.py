@@ -17,7 +17,10 @@ GPU machine that has only the port's dependencies:
 Tolerances: (min, +) and (or, and) bitwise; (+, ×) rtol=1e-5 (float32
 sums reassociate); in bfloat16/float16 (+, ×) kernel and plain version
 inside ``plus_times_bounds``, the interval any float32 order of the slot
-sums admits (one rounding per ELL slot and per fold); PageRank
+sums admits (one rounding per ELL slot and per fold); the row kernel
+(``bsr_spmv_rows``, the ``pallas`` backend's) the same, its 16-bit
+(+, ×) inside the bounds of the dense layout it equals, or on a star too
+large for one inside ``plus_times_bounds_rows``; PageRank
 atol=1e-6, rtol=1e-5.  The fused runner (CUDA graphs) is held bitwise
 against the stepwise one for SSSP, BFS and CC.  decode_attn and ssd in
 float32 as the JAX kernel tests hold them (2e-5 and 2e-4); in bfloat16
@@ -274,11 +277,157 @@ def test_device_built_layout_matches_cpu(runtimes, semiring):
     assert torch.equal(on_gpu.cols.cpu(), on_cpu.cols)
 
 
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "or_and"])
+def test_device_built_rows_match_cpu(runtimes, semiring):
+    on_cpu, on_gpu = (rt.local_rows(block_size=32, semiring=semiring)
+                      for rt in runtimes)
+    for f in ("units", "cols", "vals", "gather", "rank"):
+        assert torch.equal(getattr(on_gpu, f).cpu(), getattr(on_cpu, f)), f
+
+
+def rows_inputs(rt, rows, semiring, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((rt.p, rows.padded), generator=gen)
+    if semiring == "or_and":
+        x = (x < 0.5).float()
+    elif semiring == "min_plus":
+        x[torch.rand(x.shape, generator=gen) < 0.2] = float("inf")
+    return x.to(dtype).to(rows.vals.device)
+
+
+def hold_rows_kernel(rows, x, semiring, bm, bounds):
+    """The kernel against its plain version on the CPU (bitwise under
+    (min,+) and (or,and); float32 (+,×) at rtol 1e-5; 16-bit (+,×) both
+    inside ``bounds()``), one launch a call, bitwise from run to run."""
+    before = port_k.bsr_spmv_rows.launches
+    got = port_k.bsr_spmv_rows(rows.units, rows.cols, rows.vals, x, semiring,
+                               bm)
+    again = port_k.bsr_spmv_rows(rows.units, rows.cols, rows.vals, x,
+                                 semiring, bm)
+    torch.cuda.synchronize()
+    assert port_k.bsr_spmv_rows.launches == before + 2
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(got, again)
+    want = port_k.bsr_spmv_rows_ref(rows.units.cpu(), rows.cols.cpu(),
+                                    rows.vals.cpu(), x.cpu(), semiring, bm)
+    got = got.cpu()
+    if semiring != "plus_times":
+        assert torch.equal(got, want)
+    elif x.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    else:
+        lo, hi = bounds()
+        assert bool(((lo <= got) & (got <= hi)).all())
+        assert bool(((lo <= want) & (want <= hi)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "or_and"])
+def test_rows_kernel_matches_plain(runtimes, semiring, dtype):
+    _, rt = runtimes
+    name = str(dtype).split(".")[-1]
+    kw = dict(block_size=32, semiring=semiring, weights="weight",
+              dtype=name)
+    rows = rt.local_rows(**kw)
+    x = rows_inputs(rt, rows, semiring, dtype, 11)
+
+    def bounds():
+        dense = rt.local_bsr(**kw)
+        return (t.cpu() for t in port_k.plus_times_bounds(
+            dense.cols, dense.blocks, x))
+    hold_rows_kernel(rows, x, semiring, 32, bounds)
+
+
+def star_runtime(device, leaves=10_500, extra=30_000):
+    """A star whose centre holds ``leaves`` entries, and random edges among
+    its leaves, on two machines: CTA rows, warp rows and slices."""
+    from repro_torch.core import from_edge_list
+    rng = np.random.default_rng(3)
+    star = np.stack([np.zeros(leaves, dtype=np.int64),
+                     np.arange(1, leaves + 1)], axis=1)
+    u = (rng.pareto(1.2, extra) * 10).astype(np.int64) % leaves + 1
+    v = rng.integers(1, leaves + 1, extra)
+    g = from_edge_list(np.concatenate([star, np.stack([u, v], 1)]),
+                       num_vertices=leaves + 1)
+    assign = np.where((g.edges == 0).any(axis=1)
+                      | (np.arange(g.num_edges) % 2 == 0), 0, 1)
+    w = (rng.random(g.num_edges) + 0.1).astype(np.float32)
+    return PartitionRuntime.create(g, assign=assign, p=2, edge_weights=w,
+                                   device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "or_and"])
+def test_rows_kernel_on_a_star(cuda, semiring, dtype):
+    rt = star_runtime(cuda)
+    rows = rt.local_rows(block_size=128, semiring=semiring,
+                         dtype=str(dtype).split(".")[-1])
+    assert rows.fill_stats[0]["cta_rows"] >= 1
+    assert rows.fill_stats[0]["slices"] >= 1
+    x = rows_inputs(rt, rows, semiring, dtype, 12)
+
+    def bounds():
+        return (t.cpu() for t in port_k.rows.plus_times_bounds_rows(
+            rows.units, rows.cols, rows.vals, x, 128))
+    hold_rows_kernel(rows, x, semiring, 128, bounds)
+
+
+@pytest.mark.parametrize("kind", ["slice", "row"])
+@pytest.mark.parametrize("cols,vals,bm,want", [
+    ([0, 2, 3], [1.0, 2 ** -8, 2 ** -8], 2, 1 + 2 ** -7),
+    ([0, 2, 3], [1.0, 2 ** -8, 2 ** -8], 1, 1.0),
+    ([0, 1, 2], [2 ** -8, 2 ** -8, 1.0], 1, 1 + 2 ** -7),
+    ([0, 1, 2], [1.0, 2 ** -8, 2 ** -8], 1, 1.0)])
+def test_rows_kernel_folds_16bit_groups_in_order(cuda, kind, cols, vals, bm,
+                                                 want):
+    """A column group's float32 sum is rounded once and folded into y in
+    ascending group order, by a lane (a slice's row) and by a warp."""
+    rows = port_k.rows
+    if kind == "slice":
+        units, c, v, _ = rows.pack_rows(
+            [(np.zeros(3, dtype=np.int64), np.asarray(cols, np.int32),
+              np.asarray(vals, np.float32))], 4, 0.0)
+    else:
+        word = np.array([[0, 0, 0, (rows.ROW << rows.LEN_BITS) | 3]],
+                        dtype=np.uint32)
+        units, c, v = word.view(np.int32), np.asarray(cols, np.int32), \
+            np.asarray(vals, np.float32)
+    units, c = torch.from_numpy(units).to(cuda), torch.from_numpy(c).to(cuda)
+    v = torch.from_numpy(v).to(cuda).to(torch.bfloat16)
+    x = torch.ones((1, 4), dtype=torch.bfloat16, device=cuda)
+    y = port_k.bsr_spmv_rows(units, c, v, x, "plus_times", bm)
+    assert float(y[0, 0]) == want
+
+
+def test_rows_kernel_under_capture(runtimes):
+    """A call under a CUDA graph's capture launches nothing and counts
+    nothing; each replay gives the eager result bitwise."""
+    _, rt = runtimes
+    rows = rt.local_rows(block_size=32, semiring="min_plus")
+    x = rows_inputs(rt, rows, "min_plus", torch.float32, 13)
+    args = (rows.units, rows.cols, rows.vals, x, "min_plus", 32)
+    eager = port_k.bsr_spmv_rows(*args)
+    torch.cuda.synchronize()
+    before = port_k.bsr_spmv_rows.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = port_k.bsr_spmv_rows(*args)
+    assert port_k.bsr_spmv_rows.launches == before
+    for _ in range(2):
+        y.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+    assert port_k.bsr_spmv_rows.launches == before
+
+
 def test_pagerank_pallas_matches_scatter(runtimes):
     _, rt = runtimes
-    launches = port_k.bsr_spmv.launches
+    launches = port_k.bsr_spmv_rows.launches
     pr, act = pagerank(rt, num_iters=10, backend="pallas", block_size=32)
-    assert port_k.bsr_spmv.launches == launches + 10
+    assert port_k.bsr_spmv_rows.launches == launches + 10
     pr_s, _ = pagerank(rt, num_iters=10, backend="scatter")
     pr_cpu, _ = pagerank(runtimes[0], num_iters=10, backend="scatter")
     np.testing.assert_allclose(pr, pr_s, atol=1e-6, rtol=1e-5)
@@ -302,8 +451,11 @@ def test_program_spans_leave_no_device_event(runtimes):
     mine = [e for e in prof.events() if e.name.startswith(obs.PREFIX)]
     assert [e.name for e in mine].count("repro_torch.bsp.superstep") == 5
     assert not [e.name for e in mine if e.device_type == cuda]
-    assert any(e.device_type == cuda and "bsr_spmv" in e.name
+    assert any(e.device_type == cuda and "bsr_spmv_rows" in e.name
                for e in prof.events())
+    # the dense Block-ELL kernel is off the path
+    assert not any(e.device_type == cuda and "bsr_spmv_kernel" in e.name
+                   for e in prof.events())
 
 
 SPARSE_APPS = {"sssp": (sssp, dict(source=0, num_iters=25)),
@@ -334,23 +486,23 @@ def test_fused_runner_replays_captured_graphs(runtimes):
     _, rt = runtimes
     spec = build_app(rt, "sssp", backend="pallas", block_size=32)
     run = make_fused_runner(spec.superstep, spec.static, chunk=3)
-    launches = port_k.bsr_spmv.launches
+    launches = port_k.bsr_spmv_rows.launches
     out, acts = run(spec.state, 7)         # chunks of 3, 3 and 1
     torch.cuda.synchronize()
     assert set(run.graphs) <= {3, 1} and 3 in run.graphs
     assert sum(run.replays.values()) == -(-len(acts) // 3)
     # the warm-up step launches; a call under capture is no launch
-    assert port_k.bsr_spmv.launches - launches == 1
+    assert port_k.bsr_spmv_rows.launches - launches == 1
     ref_out, ref_acts = run_bsp(spec.superstep, spec.state, spec.static,
                                 len(acts))
     for k in out:
         assert torch.equal(out[k], ref_out[k]), k
     np.testing.assert_array_equal(acts, ref_acts)
-    launches = port_k.bsr_spmv.launches
+    launches = port_k.bsr_spmv_rows.launches
     again, acts2 = run(spec.state, 7)        # replays, no new capture
     assert torch.equal(again["dist"], out["dist"])
     np.testing.assert_array_equal(acts2, acts)
-    assert port_k.bsr_spmv.launches == launches     # no warm-up step
+    assert port_k.bsr_spmv_rows.launches == launches     # no warm-up step
     assert sum(run.replays.values()) == 2 * -(-len(acts) // 3)
 
 
@@ -368,9 +520,9 @@ def test_frontier_cap_on_cuda(runtimes):
 
 def mesh_rank(rt, mesh, calls):
     """A ``spawn_machines`` rank: ``calls`` on this rank's machine, and the
-    ``bsr_spmv`` launches they made."""
-    port_k.bsr_spmv.launches = 0
-    return run_apps(rt, mesh, calls), port_k.bsr_spmv.launches
+    ``pallas`` kernel's launches they made (``bsr_spmv_rows``)."""
+    port_k.bsr_spmv_rows.launches = 0
+    return run_apps(rt, mesh, calls), port_k.bsr_spmv_rows.launches
 
 
 def test_two_gloo_ranks_on_one_card_match_stacked(cuda):

@@ -1,5 +1,6 @@
 """Port parity on the host path: generators, WindGP, runtime packing, and
-the device-built Block-ELL layout, against the JAX package on the CPU.
+the device-built Block-ELL layout, against the JAX package on the CPU;
+the row layout against the port's Block-ELL layout.
 
 Everything here is bitwise: the host code is a numpy copy, and the
 device-built blocks accumulate each cell exactly as the reference's
@@ -19,6 +20,8 @@ import repro_torch.core as port_core
 import repro_torch.data as port_data
 from repro_torch.bsp import PartitionRuntime
 from repro_torch.convert import RUNTIME_ARRAYS, runtime_from_numpy
+from repro_torch.kernels.bsr_spmv import get_semiring
+from repro_torch.kernels.bsr_spmv.rows import unit_entries
 
 
 @pytest.mark.parametrize("gen,args", [
@@ -135,3 +138,50 @@ def test_local_bsr_equal(runtimes, semiring, weights, bm):
     if not (weights == "zero" and semiring != "min_plus"):
         assert a.fill_stats == b.fill_stats
         assert a.aggregate_fill() == b.aggregate_fill()
+
+
+def dense_of_blocks(bsr) -> torch.Tensor:
+    """The (p, R·bm, R·bm) float32 matrix of a :class:`LocalBSR`: each ELL
+    slot's block ⊕-folded at its block column (a padding slot's absent
+    block folds to nothing)."""
+    sr = get_semiring(bsr.semiring)
+    p, R, K = bsr.cols.shape
+    bm = bsr.block_size
+    n = R * bm
+    m, r, k, i, j = torch.meshgrid(*(torch.arange(d) for d in
+                                     (p, R, K, bm, bm)), indexing="ij")
+    col = bsr.cols.long()[m, r, k] * bm + j
+    flat = ((m * n + r * bm + i) * n + col).reshape(-1)
+    out = torch.full((p * n * n,), sr.absent, dtype=torch.float32)
+    sr.scatter_accum(out, flat, bsr.blocks.float().reshape(-1))
+    return out.view(p, n, n)
+
+
+def dense_of_rows(rows) -> torch.Tensor:
+    """The (p, n, n) float32 matrix of a :class:`LocalRows`: its stored
+    cells, ``absent`` elsewhere."""
+    sr = get_semiring(rows.semiring)
+    n = rows.padded
+    pos, row = unit_entries(rows.units, n)
+    c = rows.cols[pos].long()
+    keep = c >= 0
+    out = torch.full((rows.p * n * n,), sr.absent, dtype=torch.float32)
+    out[row[keep] * n + c[keep]] = rows.vals[pos[keep]].float()
+    return out.view(rows.p, n, n)
+
+
+@pytest.mark.parametrize("bm", [16, 32])
+@pytest.mark.parametrize("weights", ["weight", "unit", "zero"])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "or_and"])
+def test_local_rows_expand_to_local_bsr(runtimes, semiring, weights, bm):
+    """The row layout holds the dense layout's cells, bitwise, at the same
+    positions (the same ``gather`` and ``rank``)."""
+    _, rt = runtimes
+    kw = dict(block_size=bm, semiring=semiring, weights=weights)
+    dense, rows = rt.local_bsr(**kw), rt.local_rows(**kw)
+    assert torch.equal(rows.gather, dense.gather)
+    assert torch.equal(rows.rank, dense.rank)
+    assert rows.padded == dense.padded
+    assert torch.equal(dense_of_rows(rows), dense_of_blocks(dense))
+    assert sum(s["entries"] for s in rows.fill_stats) \
+        == dense.aggregate_fill()["nnz"]
