@@ -318,6 +318,13 @@ def rank_of(order: np.ndarray, n: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class PartitionRuntime:
+    """A partition packed for the BSP apps (the module docstring lists its
+    arrays).  Its cache holds what is built from it on ``device`` once and
+    reused: the :class:`LocalRows` and :class:`LocalBSR` layouts, and the
+    apps' static tree of its arrays (``apps._static_tree``).  A runtime
+    made from another (``dataclasses.replace``, a machine slice,
+    :meth:`apply_delta`) starts with an empty cache."""
+
     p: int
     num_vertices: int
     num_replicas: int                  # R
@@ -375,9 +382,10 @@ class PartitionRuntime:
         return self._bsr_cache[key]
 
     def clear_bsr_cache(self) -> None:
-        """Drop every cached :class:`LocalBSR` and :class:`LocalRows`, so
-        that their device memory is freed once no app holds them (a dense
-        layout at ``graph500:16`` is 18.6–37.2 GB)."""
+        """Drop every cached :class:`LocalBSR` and :class:`LocalRows` and
+        the apps' static tree, so that their device memory is freed once no
+        app holds them (a dense layout at ``graph500:16`` is 18.6–37.2 GB);
+        the next query builds its tree again."""
         self._bsr_cache.clear()
 
     @classmethod

@@ -435,6 +435,31 @@ def test_pagerank_pallas_matches_scatter(runtimes):
     assert act.shape == (10, rt.p)
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["stepwise", "fused"])
+def test_second_query_reads_the_resident_tree(runtimes, fused):
+    """A second query on a runtime reads the static tree its first one
+    left on the card (the fused one replays its graph over it): bitwise a
+    fresh runtime's answer, and a stepwise PageRank from the uniform start
+    copies nothing to the card."""
+    from torch.profiler import ProfilerActivity, profile
+    _, rt = runtimes
+    kw = dict(num_iters=10, backend="pallas", block_size=32, fused=fused)
+    first = pagerank(rt, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        second = pagerank(rt, **kw)
+        torch.cuda.synchronize()
+    fresh = pagerank(dataclasses.replace(rt), **kw)
+    for got in (second, fresh):
+        np.testing.assert_array_equal(got[0], first[0])
+        np.testing.assert_array_equal(got[1], first[1])
+    names = [e.name for e in prof.events()]
+    assert any("bsr_spmv_rows" in n for n in names)
+    if not fused:
+        assert not [n for n in names if "HtoD" in n]
+
+
 def test_program_spans_leave_no_device_event(runtimes):
     """The program's spans are host events in a profile of the card: none
     is CUDA-typed, so none reads as device work."""

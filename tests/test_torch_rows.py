@@ -301,5 +301,6 @@ def test_pallas_backend_builds_only_the_row_layout(rmat_rt):
     pr, _ = pagerank(rmat_rt, num_iters=5, backend="pallas", block_size=32)
     pr_s, _ = pagerank(rmat_rt, num_iters=5, backend="scatter")
     np.testing.assert_allclose(pr, pr_s, atol=1e-6, rtol=1e-5)
-    assert [k[0] for k in rmat_rt._bsr_cache] == ["rows"]
+    # the row layout and the apps' static tree; no dense layout
+    assert sorted(k[0] for k in rmat_rt._bsr_cache) == ["rows", "tree"]
     assert bsr_spmv_rows.launches == before        # plain calls count none
