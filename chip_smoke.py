@@ -1807,7 +1807,8 @@ def dynamic_phase(out_dir, rt, seed: int, lines: list) -> list:
         repack_s = time.perf_counter() - t0
         check(runtime_fields_equal(rt, full), f"epoch {epoch + 1}: "
               f"apply_delta != a fresh from_stream repack")
-        check(not rt._bsr_cache, "apply_delta's runtime holds a layout")
+        check(rt._bsr_cache == {},
+              "apply_delta's runtime keeps something on the card")
         n_launch = sssp_hold(rt, int(np.argmax(sa.degree)),
                              f"epoch {epoch + 1}")
         launches.append(n_launch)

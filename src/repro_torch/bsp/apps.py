@@ -35,11 +35,10 @@ the same ``(V,)`` result and ``(steps, p)`` actives.
 A query records the spans (``repro_torch.obs``) ``bsp.prepare`` (the
 backend and the static tree), one ``bsp.superstep`` a stepwise superstep
 (``engine.run_bsp``) and ``bsp.finalize`` (the global result).  The static
-tree (``_static_tree``) is copied to the device on a runtime's first query
-and stays there for the runtime's later ones: a build counts the bytes it
-copies under ``bsp.h2d_bytes``, a reuse counts one ``bsp.tree_hits``, so
-the builds are ``bsp.prepare``'s count less ``bsp.tree_hits``.  A mesh
-query's machine slice is a new runtime, so it builds every query.
+tree is the runtime's (``PartitionRuntime.static_tree``): copied to the
+device on its first query, counted under ``bsp.h2d_bytes``, and kept for
+its later ones.  A mesh query's machine slice is a new runtime, so it
+copies its tree every query.
 """
 from __future__ import annotations
 
@@ -145,41 +144,6 @@ def _options(options: RunOptions | None, app: str, backend, fused, tol,
     return options, extra
 
 
-#: the static tree: each tensor's runtime array and dtype
-_TREE_FIELDS = {"edges": ("local_edges", torch.int64),
-                "edge_valid": ("edge_valid", torch.bool),
-                "edge_weight": ("edge_weight", torch.float32),
-                "vertex_valid": ("vertex_valid", torch.bool),
-                "global_degree": ("global_degree", torch.int32),
-                "weighted_degree": ("weighted_degree", torch.float32),
-                "rep_slot": ("rep_slot", torch.int64)}
-
-#: the static tree's key in the runtime's layout cache (whose other keys
-#: are the layouts' tuples)
-_TREE_KEY = ("tree",)
-
-
-def _static_tree(rt: PartitionRuntime) -> dict:
-    """The runtime's arrays as tensors on its device, in a new dict.
-
-    The tensors are copied once, on the runtime's first query, and kept
-    in its layout cache beside ``local_rows`` (``rt.clear_bsr_cache()``
-    drops them); every later query reads the same tensors, which nothing
-    writes into.  A build counts its bytes under ``bsp.h2d_bytes``, a
-    reuse one ``bsp.tree_hits``."""
-    tree = rt._bsr_cache.get(_TREE_KEY)
-    if tree is None:
-        tree = rt._bsr_cache[_TREE_KEY] = {
-            name: torch.tensor(getattr(rt, field), dtype=dt,
-                               device=rt.device)
-            for name, (field, dt) in _TREE_FIELDS.items()}
-        obs.count("bsp.h2d_bytes",
-                  sum(t.numel() * t.element_size() for t in tree.values()))
-    else:
-        obs.count("bsp.tree_hits")
-    return dict(tree)
-
-
 @dataclasses.dataclass(frozen=True)
 class AppSpec:
     """One app instance, ready for ``run_bsp``.
@@ -208,26 +172,31 @@ def _resolve(rt, backend, semiring: str, weights: str, exchange_mode: str,
         extras, combine = eb.prepare_exchanged(rt, semiring, weights,
                                                exchange_mode, r_pad,
                                                mesh=mesh)
-        return eb, {**_static_tree(rt), **extras}, combine
+        return eb, {**rt.static_tree(), **extras}, combine
 
 
-def _run(spec: "AppSpec", num_steps: int, opts: RunOptions):
-    """Dispatch an :class:`AppSpec` to the stepwise or fused runner."""
+def _query(app: str, rt: PartitionRuntime, num_iters: int, mesh, options,
+           backend, fused, tol, chunk, backend_opts: dict, **args):
+    """One public app call: resolve the options, build the app's
+    :class:`AppSpec` (:data:`APP_BUILDERS`, with ``args``), run it on the
+    stepwise or fused runner, and return ((V,) global result, (steps, p)
+    actives).  Under a mesh the result comes from every rank's state,
+    gathered (the ``bsp.finalize`` span)."""
+    opts, extra = _options(options, app, backend, fused, tol, chunk,
+                           backend_opts)
+    spec = APP_BUILDERS[app](rt, backend=opts.backend, mesh=mesh, **args,
+                             **opts.backend_opts(), **extra)
     if opts.fused or opts.tol is not None:
-        return run_bsp_fused(spec.superstep, spec.state, spec.static,
-                             num_steps, mesh=spec.mesh, chunk=opts.chunk,
-                             tol=opts.tol)
-    return run_bsp(spec.superstep, spec.state, spec.static, num_steps,
-                   mesh=spec.mesh)
-
-
-def _result(spec: "AppSpec", rt: PartitionRuntime, out: dict):
-    """The app's global result from its final state; under a mesh, from
-    every rank's state, gathered (the ``bsp.finalize`` span)."""
+        out, actives = run_bsp_fused(spec.superstep, spec.state, spec.static,
+                                     num_iters, mesh=spec.mesh,
+                                     chunk=opts.chunk, tol=opts.tol)
+    else:
+        out, actives = run_bsp(spec.superstep, spec.state, spec.static,
+                               num_iters, mesh=spec.mesh)
     with obs.span("bsp.finalize"):
         if spec.mesh is not None:
             out = gather_machines(out, spec.mesh)
-        return spec.finalize(rt, out)
+        return spec.finalize(rt, out), actives
 
 
 def build_pagerank(rt: PartitionRuntime, damping: float = 0.85, *,
@@ -277,12 +246,8 @@ def pagerank(rt: PartitionRuntime, num_iters: int = 20,
     additionally stops once ``‖pr_{t+1} − pr_t‖∞ ≤ tol`` (and implies
     fused).
     """
-    opts, extra = _options(options, "pagerank", backend, fused, tol, chunk,
-                           backend_opts)
-    spec = build_pagerank(rt, damping, backend=opts.backend, init=init,
-                          mesh=mesh, **opts.backend_opts(), **extra)
-    out, actives = _run(spec, num_iters, opts)
-    return _result(spec, rt, out), actives
+    return _query("pagerank", rt, num_iters, mesh, options, backend, fused,
+                  tol, chunk, backend_opts, damping=damping, init=init)
 
 
 def _sources(rt: PartitionRuntime, source: int) -> np.ndarray:
@@ -337,12 +302,8 @@ def sssp(rt: PartitionRuntime, source: int = 0, num_iters: int = 30, *,
          fused=False, tol=None, chunk=8, **backend_opts):
     """Returns ((V,) distances from ``source`` by edge weight, (steps, p)
     actives)."""
-    opts, extra = _options(options, "sssp", backend, fused, tol, chunk,
-                           backend_opts)
-    spec = build_relax(rt, source, weighted=True, backend=opts.backend,
-                       mesh=mesh, **opts.backend_opts(), **extra)
-    out, actives = _run(spec, num_iters, opts)
-    return _result(spec, rt, out), actives
+    return _query("sssp", rt, num_iters, mesh, options, backend, fused, tol,
+                  chunk, backend_opts, source=source)
 
 
 # ---------------------------------------------------------------------------
@@ -378,12 +339,8 @@ def bfs(rt: PartitionRuntime, source: int = 0, num_iters: int = 30, *,
         mesh=None, options: RunOptions | None = None, backend="scatter",
         fused=False, tol=None, chunk=8, **backend_opts):
     """Returns ((V,) hop distances from ``source``, (steps, p) actives)."""
-    opts, extra = _options(options, "bfs", backend, fused, tol, chunk,
-                           backend_opts)
-    spec = build_bfs(rt, source, backend=opts.backend, mesh=mesh,
-                     **opts.backend_opts(), **extra)
-    out, actives = _run(spec, num_iters, opts)
-    return _result(spec, rt, out), actives
+    return _query("bfs", rt, num_iters, mesh, options, backend, fused, tol,
+                  chunk, backend_opts, source=source)
 
 
 # ---------------------------------------------------------------------------
@@ -419,12 +376,8 @@ def connected_components(rt: PartitionRuntime, num_iters: int = 30, *,
                          **backend_opts):
     """Min-label propagation; returns ((V,) component id per vertex,
     (steps, p) actives)."""
-    opts, extra = _options(options, "cc", backend, fused, tol, chunk,
-                           backend_opts)
-    spec = build_components(rt, backend=opts.backend, mesh=mesh,
-                            **opts.backend_opts(), **extra)
-    out, actives = _run(spec, num_iters, opts)
-    return _result(spec, rt, out), actives
+    return _query("cc", rt, num_iters, mesh, options, backend, fused, tol,
+                  chunk, backend_opts)
 
 
 #: app name -> AppSpec builder

@@ -14,18 +14,21 @@ leading machine axis ``(p, ...)``:
                         -1 if the vertex lives on a single machine.
 
 These are packed on the host in numpy, exactly as the reference packs
-them; ``device`` says where the BSP apps put their tensors.
-:meth:`PartitionRuntime.local_rows` builds each machine's local adjacency
-as rows of (column, value) entries (:class:`LocalRows`), the layout the
-``pallas`` backend reads; :meth:`PartitionRuntime.local_bsr` builds the
-dense Block-ELL counterpart of the reference's layout (:class:`LocalBSR`),
-whose blocks are filled on the device.
+them; ``device`` says where the BSP apps put their tensors, and where the
+runtime keeps, once built, the apps' static tree of them
+(:meth:`PartitionRuntime.static_tree`, :data:`_TREE_FIELDS`) and its two
+layouts.  :meth:`PartitionRuntime.local_rows` builds each machine's local
+adjacency as rows of (column, value) entries (:class:`LocalRows`), the
+layout the ``pallas`` backend reads; :meth:`PartitionRuntime.local_bsr`
+builds the dense Block-ELL counterpart of the reference's layout
+(:class:`LocalBSR`), whose blocks are filled on the device.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import os
+from typing import Callable
 
 import numpy as np
 import torch
@@ -40,6 +43,15 @@ WEIGHT_KINDS = ("weight", "unit", "zero")
 
 #: message (block storage) dtypes, by the reference's names
 MESSAGE_DTYPES = ("float32", "bfloat16", "float16")
+
+#: the apps' static tree: each tensor's runtime array and dtype
+_TREE_FIELDS = {"edges": ("local_edges", torch.int64),
+                "edge_valid": ("edge_valid", torch.bool),
+                "edge_weight": ("edge_weight", torch.float32),
+                "vertex_valid": ("vertex_valid", torch.bool),
+                "global_degree": ("global_degree", torch.int32),
+                "weighted_degree": ("weighted_degree", torch.float32),
+                "rep_slot": ("rep_slot", torch.int64)}
 
 
 def message_dtype(name: str) -> torch.dtype:
@@ -139,18 +151,9 @@ class LocalBSR:
         R = max(1, -(-vmax // bm))
         dev = rt.device
         with obs.span("layout.host"):
-            per, orders, ranks, stats = [], [], [], []
-            for i in range(p):
-                ev = rt.edge_valid[i]
-                e = rt.local_edges[i][ev].astype(np.int64)
-                deg = np.zeros(vmax, dtype=np.int64)
-                np.add.at(deg, e[:, 0], 1)
-                np.add.at(deg, e[:, 1], 1)
-                order = np.argsort(-deg, kind="stable").astype(np.int32)
-                rank = rank_of(order, vmax)
-                w = edge_operand(rt.edge_weight[i][ev],
-                                 weights).astype(np.float32)
-                e = rank[e].astype(np.int64)
+            relabeled, gather, rank_np = _relabel(rt, weights, R * bm)
+            per, stats = [], []
+            for e, w in relabeled:
                 rows = np.concatenate([e[:, 0], e[:, 1]])
                 cols = np.concatenate([e[:, 1], e[:, 0]])
                 w = np.concatenate([w, w])
@@ -163,8 +166,6 @@ class LocalBSR:
                 nnz = len(np.unique(rows * (R * bm) + cols))
                 per.append((urow, uslot, uniq % R, rows, cols, uslot[inv], w,
                             k_i))
-                orders.append(order)
-                ranks.append(rank)
                 stats.append({
                     "rows": R, "ell_k": k_i, "block_size": bm,
                     "nnz": nnz, "nnz_blocks": len(uniq),
@@ -181,10 +182,7 @@ class LocalBSR:
                 flat = (((rows // bm) * K + slot) * bm + rows % bm) * bm \
                     + cols % bm
                 cells_of.append((flat, w))
-            del per
-            gather = np.zeros((p, R * bm), dtype=np.int64)
-            gather[:, :vmax] = np.stack(orders)
-            rank_np = np.stack(ranks).astype(np.int64)
+            del per, relabeled
         with obs.span("layout.device"):
             blocks = torch.empty((p, R, K, bm, bm), dtype=dt, device=dev)
             stage = None if dt == torch.float32 else torch.empty(
@@ -253,8 +251,8 @@ class LocalRows:
               dtype: str = "float32") -> "LocalRows":
         """Row layout from ``rt.local_edges`` on ``rt.device``.
 
-        On the host (span ``layout.host``): each machine's order, ranks and
-        ``gather`` exactly as :meth:`LocalBSR.build` computes them; every
+        On the host (span ``layout.host``): the relabeling, ``gather`` and
+        ``rank`` that :meth:`LocalBSR.build` shares (``_relabel``); every
         edge in both directions at its (row, col) cell, parallel edges
         ⊕-merged in float32 in the order ``LocalBSR`` scatters them
         (``np_accum_at``, as the reference accumulates a cell); then the
@@ -265,22 +263,13 @@ class LocalRows:
         from ..kernels.bsr_spmv.rows import pack_rows
         sr = get_semiring(semiring)
         dt = message_dtype(dtype)
-        p, vmax, bm = rt.p, rt.vmax, int(block_size)
-        n = max(1, -(-vmax // bm)) * bm
+        bm = int(block_size)
+        n = max(1, -(-rt.vmax // bm)) * bm
         dev = rt.device
         with obs.span("layout.host"):
-            machines, orders, ranks = [], [], []
-            for i in range(p):
-                ev = rt.edge_valid[i]
-                e = rt.local_edges[i][ev].astype(np.int64)
-                deg = np.zeros(vmax, dtype=np.int64)
-                np.add.at(deg, e[:, 0], 1)
-                np.add.at(deg, e[:, 1], 1)
-                order = np.argsort(-deg, kind="stable").astype(np.int32)
-                rank = rank_of(order, vmax)
-                w = edge_operand(rt.edge_weight[i][ev],
-                                 weights).astype(np.float32)
-                e = rank[e].astype(np.int64)
+            relabeled, gather, rank_np = _relabel(rt, weights, n)
+            machines = []
+            for e, w in relabeled:
                 key = np.concatenate([e[:, 0] * n + e[:, 1],
                                       e[:, 1] * n + e[:, 0]])
                 cells, inv = np.unique(key, return_inverse=True)
@@ -289,13 +278,9 @@ class LocalRows:
                                np.concatenate([w, w]))
                 machines.append((cells // n, (cells % n).astype(np.int32),
                                  vals))
-                orders.append(order)
-                ranks.append(rank)
+            del relabeled
             units, cols, vals, stats = pack_rows(machines, n, sr.absent)
             del machines
-            gather = np.zeros((p, n), dtype=np.int64)
-            gather[:, :vmax] = np.stack(orders)
-            rank_np = np.stack(ranks).astype(np.int64)
         with obs.span("layout.device"):
             out = cls(units=torch.from_numpy(units).to(dev),
                       cols=torch.from_numpy(cols).to(dev),
@@ -316,14 +301,39 @@ def rank_of(order: np.ndarray, n: int) -> np.ndarray:
     return rank
 
 
+def _relabel(rt: "PartitionRuntime", weights: str, n: int):
+    """The degree-sorted local relabeling both layouts share: each
+    machine's valid edges by position (descending local degree, ties by
+    local index) with their float32 ⊗ operands, and the stacked ``gather``
+    ((p, n) int64: position -> local index; pad positions read slot 0)
+    and ``rank`` ((p, Vmax) int64: local index -> position)."""
+    vmax = rt.vmax
+    relabeled = []
+    gather = np.zeros((rt.p, n), dtype=np.int64)
+    rank = np.empty((rt.p, vmax), dtype=np.int64)
+    for i in range(rt.p):
+        ev = rt.edge_valid[i]
+        e = rt.local_edges[i][ev].astype(np.int64)
+        deg = np.zeros(vmax, dtype=np.int64)
+        np.add.at(deg, e[:, 0], 1)
+        np.add.at(deg, e[:, 1], 1)
+        order = np.argsort(-deg, kind="stable").astype(np.int32)
+        rank_i = rank_of(order, vmax)
+        w = edge_operand(rt.edge_weight[i][ev], weights).astype(np.float32)
+        relabeled.append((rank_i[e].astype(np.int64), w))
+        gather[i, :vmax] = order
+        rank[i] = rank_i
+    return relabeled, gather, rank
+
+
 @dataclasses.dataclass(frozen=True)
 class PartitionRuntime:
     """A partition packed for the BSP apps (the module docstring lists its
-    arrays).  Its cache holds what is built from it on ``device`` once and
-    reused: the :class:`LocalRows` and :class:`LocalBSR` layouts, and the
-    apps' static tree of its arrays (``apps._static_tree``).  A runtime
-    made from another (``dataclasses.replace``, a machine slice,
-    :meth:`apply_delta`) starts with an empty cache."""
+    arrays).  It keeps on ``device`` what is built from it once and reused:
+    the :class:`LocalRows` and :class:`LocalBSR` layouts and the apps'
+    static tree (:meth:`static_tree`), each under a key that starts with its
+    kind.  A runtime made from another (``dataclasses.replace``, a machine
+    slice, :meth:`apply_delta`) starts with nothing kept."""
 
     p: int
     num_vertices: int
@@ -352,40 +362,59 @@ class PartitionRuntime:
     def _bsr_cache(self) -> dict:
         return {}
 
+    def _resident(self, key: tuple, build: Callable):
+        """What the runtime keeps under ``key``; ``build()`` makes it on the
+        first call."""
+        value = self._bsr_cache.get(key)
+        if value is None:
+            value = self._bsr_cache[key] = build()
+        return value
+
+    def static_tree(self) -> dict:
+        """The apps' static tree (:data:`_TREE_FIELDS`): the runtime's arrays
+        as tensors on its device, in a new dict a call.
+
+        The tensors are copied on the first call, which counts their bytes
+        under ``bsp.h2d_bytes``, and every later call hands out the same
+        ones, which nothing writes into."""
+        def upload():
+            tree = {name: torch.tensor(getattr(self, field), dtype=dt,
+                                       device=self.device)
+                    for name, (field, dt) in _TREE_FIELDS.items()}
+            obs.count("bsp.h2d_bytes",
+                      sum(t.numel() * t.element_size() for t in tree.values()))
+            return tree
+        return dict(self._resident(("tree",), upload))
+
     def local_bsr(self, *, block_size: int = 128,
                   semiring: str = "plus_times", weights: str = "weight",
                   dtype: str = "float32") -> LocalBSR:
         """The blocked per-machine adjacency (:class:`LocalBSR`), built once
-        per (block_size, semiring, weights, dtype) and cached on the
-        runtime; ``dtype`` is the stored block precision (the message
-        dtype)."""
-        key = (int(block_size), get_semiring(semiring).name, str(weights),
-               str(dtype))
-        if key not in self._bsr_cache:
-            self._bsr_cache[key] = LocalBSR.build(
-                self, block_size=block_size, semiring=semiring,
-                weights=weights, dtype=dtype)
-        return self._bsr_cache[key]
+        per (block_size, semiring, weights, dtype) and kept on the runtime;
+        ``dtype`` is the stored block precision (the message dtype)."""
+        key = ("bsr", int(block_size), get_semiring(semiring).name,
+               str(weights), str(dtype))
+        return self._resident(key, lambda: LocalBSR.build(
+            self, block_size=block_size, semiring=semiring, weights=weights,
+            dtype=dtype))
 
     def local_rows(self, *, block_size: int = 128,
                    semiring: str = "plus_times", weights: str = "weight",
                    dtype: str = "float32") -> LocalRows:
         """The per-machine row layout (:class:`LocalRows`), built once per
-        (block_size, semiring, weights, dtype) and cached on the runtime
-        beside :meth:`local_bsr`'s layouts."""
+        (block_size, semiring, weights, dtype) and kept on the runtime."""
         key = ("rows", int(block_size), get_semiring(semiring).name,
                str(weights), str(dtype))
-        if key not in self._bsr_cache:
-            self._bsr_cache[key] = LocalRows.build(
-                self, block_size=block_size, semiring=semiring,
-                weights=weights, dtype=dtype)
-        return self._bsr_cache[key]
+        return self._resident(key, lambda: LocalRows.build(
+            self, block_size=block_size, semiring=semiring, weights=weights,
+            dtype=dtype))
 
     def clear_bsr_cache(self) -> None:
-        """Drop every cached :class:`LocalBSR` and :class:`LocalRows` and
-        the apps' static tree, so that their device memory is freed once no
-        app holds them (a dense layout at ``graph500:16`` is 18.6–37.2 GB);
-        the next query builds its tree again."""
+        """Drop everything the runtime keeps on its device: every
+        :class:`LocalBSR` and :class:`LocalRows` and the static tree, so that
+        their memory is freed once no app holds them (a dense layout at
+        ``graph500:16`` is 18.6–37.2 GB); the next query builds its tree
+        again."""
         self._bsr_cache.clear()
 
     @classmethod

@@ -16,10 +16,9 @@ between two snapshots.  A span neither synchronises with the device nor
 allocates on it, so it may sit inside a CUDA-graph capture, where it
 records the host's time as anywhere else.
 
-A BSP query (``bsp/apps.py``) counts its static tree: ``bsp.h2d_bytes``
-the bytes it copies to the device where it builds the tree (a runtime's
-first query), ``bsp.tree_hits`` one where it finds the tree resident, so
-``bsp.prepare``'s count less ``bsp.tree_hits`` is the number of builds.
+A BSP query (``bsp/apps.py``) counts under ``bsp.h2d_bytes`` the bytes
+its runtime copies to the device where it builds its static tree (a
+runtime's first query, ``PartitionRuntime.static_tree``).
 
     with obs.span("bsp.prepare"):
         ...

@@ -112,21 +112,20 @@ def test_no_profiler_no_event():
 def test_query_spans_and_upload(runtime, app, args):
     """A query prepares once, so ``bsp.prepare`` counts queries; the first
     query on a runtime copies its static tree, a second copies nothing and
-    counts one hit."""
+    moves no counter."""
     rt = dataclasses.replace(runtime)          # an empty cache
     before = obs.snapshot()
     _, act = getattr(apps, app)(rt, num_iters=7, backend="scatter", **args)
     d = obs.delta(obs.snapshot(), before)
     assert {k: v["count"] for k, v in d["spans"].items()} == {
         "bsp.prepare": 1, "bsp.superstep": len(act), "bsp.finalize": 1}
-    tree = rt._bsr_cache[apps._TREE_KEY]
     assert d["counters"] == {"bsp.h2d_bytes": sum(
-        t.numel() * t.element_size() for t in tree.values())}
+        t.numel() * t.element_size() for t in rt.static_tree().values())}
     before = obs.snapshot()
     getattr(apps, app)(rt, num_iters=7, backend="scatter", **args)
     d = obs.delta(obs.snapshot(), before)
     assert d["spans"]["bsp.prepare"]["count"] == 1
-    assert d["counters"] == {"bsp.tree_hits": 1}
+    assert d["counters"] == {}
 
 
 def test_query_steps_do_not_overlap_in_a_profile(runtime):

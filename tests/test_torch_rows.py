@@ -304,3 +304,23 @@ def test_pallas_backend_builds_only_the_row_layout(rmat_rt):
     # the row layout and the apps' static tree; no dense layout
     assert sorted(k[0] for k in rmat_rt._bsr_cache) == ["rows", "tree"]
     assert bsr_spmv_rows.launches == before        # plain calls count none
+
+
+def test_layouts_and_tree_share_one_store(rmat_rt):
+    """The dense and row layouts of equal arguments are kept apart beside
+    the static tree, and one eviction drops all three."""
+    kw = dict(block_size=16, semiring="min_plus", weights="unit")
+    rmat_rt.clear_bsr_cache()
+    bsr, rows = rmat_rt.local_bsr(**kw), rmat_rt.local_rows(**kw)
+    tree = rmat_rt.static_tree()
+    assert rmat_rt.local_bsr(**kw) is bsr and rmat_rt.local_rows(**kw) is rows
+    assert sorted(k[0] for k in rmat_rt._bsr_cache) == ["bsr", "rows", "tree"]
+    rmat_rt.clear_bsr_cache()
+    assert rmat_rt._bsr_cache == {}
+    before = obs.snapshot()
+    assert rmat_rt.local_bsr(**kw) is not bsr
+    assert rmat_rt.local_rows(**kw) is not rows
+    assert rmat_rt.static_tree()["edges"] is not tree["edges"]
+    d = obs.delta(obs.snapshot(), before)
+    assert d["spans"]["layout.host"]["count"] == 2
+    assert d["counters"]["bsp.h2d_bytes"] > 0

@@ -4,7 +4,7 @@ runtime's first query, read by every later one, written by none.
 Every app on every backend, stepwise and fused, gives bitwise the same
 results and actives on a runtime's first and second query and on a fresh
 copy of the runtime; the second query copies nothing (``bsp.h2d_bytes``)
-and counts one ``bsp.tree_hits``.
+and moves no counter.
 """
 import dataclasses
 
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.bsp import PartitionRuntime, apps, machine_slice
+from repro_torch.bsp.partition_runtime import _TREE_FIELDS
 from repro_torch.core import scaled_paper_cluster, windgp
 from repro_torch.data import rmat
 
@@ -46,7 +47,7 @@ def query(rt, app, backend, fused=False):
 
 def tree_bytes(rt) -> int:
     return sum(t.numel() * t.element_size()
-               for t in rt._bsr_cache[apps._TREE_KEY].values())
+               for t in rt.static_tree().values())
 
 
 def counted(fn):
@@ -68,9 +69,8 @@ def test_second_query_reuses_the_tree(runtime, app, backend, fused):
     rt = fresh(runtime)
     first, c1 = counted(lambda: query(rt, app, backend, fused))
     assert c1["bsp.h2d_bytes"] == tree_bytes(rt) > 0
-    assert "bsp.tree_hits" not in c1
     second, c2 = counted(lambda: query(rt, app, backend, fused))
-    assert c2 == {"bsp.tree_hits": 1}
+    assert c2 == {}
     assert_same(second, first)
     assert_same(query(fresh(rt), app, backend, fused), first)
 
@@ -81,9 +81,9 @@ def test_resident_tree_is_never_written(runtime):
         for backend in BACKENDS:
             for fused in (False, True):
                 query(rt, app, backend, fused)
-    tree = rt._bsr_cache[apps._TREE_KEY]
-    assert set(tree) == set(apps._TREE_FIELDS)
-    for name, (field, dt) in apps._TREE_FIELDS.items():
+    tree = rt.static_tree()
+    assert set(tree) == set(_TREE_FIELDS)
+    for name, (field, dt) in _TREE_FIELDS.items():
         assert tree[name].dtype == dt, name
         assert torch.equal(tree[name],
                            torch.as_tensor(getattr(rt, field)).to(dt)), name
@@ -91,11 +91,11 @@ def test_resident_tree_is_never_written(runtime):
 
 def test_a_query_gets_its_own_dict_over_the_same_tensors(runtime):
     rt = fresh(runtime)
-    a = apps._static_tree(rt)
+    a = rt.static_tree()
     a["extra"] = torch.zeros(1)
-    b = apps._static_tree(rt)
-    assert "extra" not in b and "extra" not in rt._bsr_cache[apps._TREE_KEY]
-    assert all(b[k] is a[k] for k in apps._TREE_FIELDS)
+    b = rt.static_tree()
+    assert "extra" not in b
+    assert all(b[k] is a[k] for k in _TREE_FIELDS)
     # the tree owns its memory: it is no view of the runtime's arrays
     assert not np.shares_memory(b["vertex_valid"].numpy(), rt.vertex_valid)
 
@@ -107,7 +107,7 @@ def test_clear_bsr_cache_drops_the_tree(runtime):
     rt.clear_bsr_cache()
     assert rt._bsr_cache == {}
     _, c = counted(lambda: query(rt, "sssp", "pallas"))
-    assert c["bsp.h2d_bytes"] == nbytes and "bsp.tree_hits" not in c
+    assert c["bsp.h2d_bytes"] == nbytes
 
 
 def test_a_changed_runtime_builds_its_own_tree(runtime):
@@ -116,7 +116,7 @@ def test_a_changed_runtime_builds_its_own_tree(runtime):
     heavier = dataclasses.replace(rt, edge_weight=rt.edge_weight * 2)
     (dist2, _), c = counted(lambda: query(heavier, "sssp", "scatter"))
     assert c["bsp.h2d_bytes"] == tree_bytes(heavier)
-    assert torch.equal(heavier._bsr_cache[apps._TREE_KEY]["edge_weight"],
+    assert torch.equal(heavier.static_tree()["edge_weight"],
                        torch.from_numpy(heavier.edge_weight))
     finite = np.isfinite(dist)
     np.testing.assert_array_equal(dist2[finite], 2 * dist[finite])
